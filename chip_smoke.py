@@ -3,18 +3,26 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``csrc/`` with nvcc, then:
+Builds the port's CUDA kernels from ``csrc/`` with nvcc (one process per
+source, in parallel), then:
 
-(a) holds each kernel (K1 ``screen_cand_bsums``, K2 ``naive_nib``) against
-    its plain PyTorch version on the card, bit for bit, at the shapes the
-    main path gives it (256 MiB corpora);
-(b) drives ``match()`` (single-pattern Boyer-Moore, the defaults) on 256 MiB
-    English, DNA and UTF-8 corpora against the pure-Python oracle;
+(a) holds each kernel against its plain PyTorch version on the card, bit
+    for bit, at the shapes the main paths give it (256 MiB corpora): K1
+    ``screen_cand_bsums``, K2 ``naive_nib`` and K3 ``naive_bsums`` on every
+    corpus; K4 ``kmp_bsums`` (K = 1 at m=16, the m=64 screen on
+    pattern[:32], K = 2 at m=64, K = 8 at m=256) and K5
+    ``rk_candidate_bsums`` (m=16, m=509) on English and DNA;
+(b) drives ``match()`` for every algorithm (the defaults: Boyer-Moore,
+    then naive, KMP and Rabin-Karp) on 256 MiB English, DNA and UTF-8
+    corpora against the pure-Python oracle; KMP also at m=4, 64 and 256,
+    Rabin-Karp at m=509;
 (c) drives a match-dense case that must take the K2 rescan, against a
     numpy shifted-compare reference;
 (d) checks that ``drain=True`` returns every offset past ``capacity``;
-(e) times K1, K2 and their plain versions with CUDA events, and ``match``
-    from host bytes and on a device-resident text.
+(e) times every kernel and its plain version with CUDA events, ``match``
+    per algorithm on a device-resident text (host clock, and device time
+    and idle share from torch.profiler) and from host bytes, and the KMP
+    dense-DFA tail at m=509.
 
 The launch counters are zeroed before (b) and read after (d): each kernel
 must have been launched by that main-path run.  Prints the card's name and
@@ -26,6 +34,7 @@ without CUDA the script exits with code 2 before printing any result.
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -33,6 +42,7 @@ import time
 PKG = "parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch"
 REF = "parallel_implementation_of_string_matching_algorithms_opencl_tpu"
 MIB = 1 << 20
+ALGOS = ("boyer_moore", "naive", "kmp", "rabin_karp")
 
 
 def nvidia_smi() -> str:
@@ -90,6 +100,25 @@ def host_ms(fn, iters: int, passes: int = 3) -> list[float]:
     return out
 
 
+def device_profile(fn, runs: int) -> tuple[float, float]:
+    """(device ms per run, device events per run) of ``fn()`` under
+    torch.profiler: the summed durations of the events that ran on the
+    card (kernels, copies, memsets), each counted once."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    on_card = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(e.time_range.elapsed_us() for e in on_card)
+    return dev_us / 1e3 / runs, len(on_card) / runs
+
+
 def main() -> int:
     import torch
 
@@ -105,13 +134,24 @@ def main() -> int:
         match,
     )
     from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.kernels import (
+        rk_roll,
+        shift_and,
         swar,
     )
     from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.models.algorithms import (
         BoyerMooreMatcher,
+        KMPMatcher,
+        NaiveMatcher,
+        RabinKarpMatcher,
     )
     from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.models.base import (
         to_device,
+    )
+    from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.ops import (
+        kmp as kmp_ops,
+    )
+    from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.ops import (
+        tables,
     )
     from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.utils import (
         cuda_build,
@@ -123,6 +163,8 @@ def main() -> int:
         pad_to_multiple,
     )
 
+    matchers = {"boyer_moore": BoyerMooreMatcher, "naive": NaiveMatcher,
+                "kmp": KMPMatcher, "rabin_karp": RabinKarpMatcher}
     dev = torch.device("cuda")
     smi = nvidia_smi()
     card = f"[{smi}]"
@@ -131,11 +173,13 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    lib = cuda_build.build("swar")
-    print(f"build: {lib} in {time.perf_counter() - t0:.2f} s")
-    for line in cuda_build.build_log("swar").splitlines():
-        if "ptxas info" in line:
-            print(f"  {line.strip()}")
+    libs = cuda_build.build_all()
+    print(f"build: {len(libs)} libraries in {time.perf_counter() - t0:.2f} s "
+          f"(one nvcc per source, in parallel)")
+    for name in libs:
+        for line in cuda_build.build_log(name).splitlines():
+            if "ptxas info" in line and ("Used" in line or "Compiling" in line):
+                print(f"  {name}: {line.strip()}")
 
     # -- corpora (seeded, as bench.py and bench/matrix.py make them) -------
     t0 = time.perf_counter()
@@ -156,60 +200,134 @@ def main() -> int:
         "dna": (bytes(dna), dna_pat),
         "utf8": (bytes(utf), utf_pat),
     }
+    # Longer patterns are slices of the corpus itself, so each occurs.
+    long_pats = {name: {m: text[123457 : 123457 + m] for m in (64, 256, 509)}
+                 for name, (text, _) in corpora.items()}
     dense_text, dense_pat = eng[: 64 * MIB], b"e "
     print(f"corpora: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(f'{k} {len(v[0])} B' for k, v in corpora.items())})")
 
-    # -- (a) kernels vs plain versions on the card ---------------------------
     cfg = MatchConfig()
-    errs = {"screen_cand_bsums": 0, "naive_nib": 0}
-    shapes = []
+    padded_dev = {}
+
+    def on_card(name: str, text: bytes):
+        """The padded text on the card (2 MiB multiple: the KMP/RK tile)."""
+        if name not in padded_dev:
+            padded_dev[name] = to_device(
+                pad_to_multiple(np.frombuffer(text, np.uint8), 2 * MIB), dev)
+        return padded_dev[name]
+
+    # -- (a) kernels vs plain versions on the card ---------------------------
+    names = ("screen_cand_bsums", "naive_nib", "naive_bsums", "kmp_bsums",
+             "rk_candidate_bsums")
+    errs = dict.fromkeys(names, 0)
+    lines = []
+
+    def hold(kernel: str, what: str, got, want) -> None:
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        e = max(int((g - w).abs().max()) for g, w in zip(got, want))
+        errs[kernel] = max(errs[kernel], e)
+        lines.append(f"{kernel} {what}: max_abs_err {e}")
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), (
+            f"{kernel} disagrees with its plain version on {what}")
+
     for name, (text, pat) in [*corpora.items(), ("dense", (dense_text, dense_pat))]:
         bm = BoyerMooreMatcher(pat, cfg, device=dev)
         n = len(text)
-        padded = to_device(
-            pad_to_multiple(np.frombuffer(text, np.uint8), 2 * MIB), dev
-        )
+        padded = (on_card(name, text) if name != "dense" else to_device(
+            pad_to_multiple(np.frombuffer(text, np.uint8), 2 * MIB), dev))
         Nk, cut = swar.kernel_region(padded.numel(), bm.m, cfg.pallas_chunk_bytes)
         limit = min(n - bm.m, cut - 1)
         region = padded.view(torch.int32)[: Nk // 4]
         P, M, probes = bm.dev_tables["swar_p"], bm.swar_m, bm.dev_tables["probes"]
-        bs_k = swar.screen_cand_bsums(region, limit, P, M, probes)
-        bs_p = swar.screen_cand_bsums_plain(region, limit, P, M, probes)
-        nib_k, bs2_k = swar.naive_nib(region, limit, P, M)
-        nib_p, bs2_p = swar.naive_nib_plain(region, limit, P, M)
-        torch.cuda.synchronize()
-        e1 = int((bs_k - bs_p).abs().max())
-        e2 = max(int((nib_k - nib_p).abs().max()), int((bs2_k - bs2_p).abs().max()))
-        errs["screen_cand_bsums"] = max(errs["screen_cand_bsums"], e1)
-        errs["naive_nib"] = max(errs["naive_nib"], e2)
-        shapes.append(f"{name}: words {region.numel()}, m {bm.m}, nw {P.shape[1]}, "
-                      f"probes {probes}, candidates {int(bs_k.sum())}, "
-                      f"matches {int(bs2_k.sum())}, max_abs_err K1 {e1} K2 {e2}")
-        assert torch.equal(bs_k, bs_p), f"K1 disagrees with plain on {name}"
-        assert torch.equal(nib_k, nib_p) and torch.equal(bs2_k, bs2_p), (
-            f"K2 disagrees with plain on {name}")
+        what = f"{name} m={bm.m} ({Nk} B)"
+        bs1 = swar.screen_cand_bsums(region, limit, P, M, probes)
+        hold("screen_cand_bsums", what, bs1,
+             swar.screen_cand_bsums_plain(region, limit, P, M, probes))
+        hold("naive_nib", what, swar.naive_nib(region, limit, P, M),
+             swar.naive_nib_plain(region, limit, P, M))
+        bs3 = swar.naive_bsums(region, limit, P, M)
+        hold("naive_bsums", what, bs3, swar.naive_bsums_plain(region, limit, P, M))
+        lines.append(f"  {name}: candidates {int(bs1.sum())}, matches {int(bs3.sum())}")
+
+    for name in ("english", "dna"):
+        text, pat16 = corpora[name]
+        n = len(text)
+        padded = on_card(name, text)
+        p64, p256, p509 = (long_pats[name][m] for m in (64, 256, 509))
+        for pat, head in ((pat16, pat16), (p64, p64[:32]), (p64, p64), (p256, p256)):
+            mk = len(head)
+            Nk, _ = shift_and.kernel_region(padded.numel(), len(pat),
+                                            cfg.pallas_chunk_bytes)
+            region = padded.view(torch.int32)[: Nk // 4]
+            bt = torch.from_numpy(shift_and.b_table(np.frombuffer(head, np.uint8))).to(dev)
+            lim = min(n, Nk) - mk
+            what = (f"{name} m={len(pat)} K={bt.shape[0]}"
+                    f"{' screen' if mk < len(pat) else ''}")
+            bs = shift_and.kmp_bsums(region, lim, bt, mk)
+            hold("kmp_bsums", what, bs, shift_and.kmp_bsums_plain(region, lim, bt, mk))
+            lines.append(f"  {what}: starts {int(bs.sum())}")
+        base = int(tables.RK_BASE)
+        for pat in (pat16, p509):
+            m = len(pat)
+            Nk, _ = shift_and.kernel_region(padded.numel(), m, cfg.pallas_chunk_bytes)
+            region = padded.view(torch.int32)[: Nk // 4]
+            tgt = torch.tensor([int(tables.rk_hash(np.frombuffer(pat, np.uint8)))],
+                               device=dev)
+            lim = min(n, Nk) - m
+            bs = rk_roll.rk_candidate_bsums(region, lim, tgt, m, base)
+            hold("rk_candidate_bsums", f"{name} m={m}", bs,
+                 rk_roll.rk_candidate_bsums_plain(region, lim, tgt, m, base))
+            lines.append(f"  {name} m={m}: hash candidates {int(bs.sum())}")
     print("(a) kernels bit-exact against their plain versions (tolerance 0):")
-    for s in shapes:
+    for s in lines:
         print(f"  {s}")
 
-    # -- (b)-(d): the main path, with the launch counters zeroed ------------
-    swar.screen_cand_bsums.launches = 0
-    swar.naive_nib.launches = 0
+    # -- (b)-(d): the main paths, with the launch counters zeroed -----------
+    kernels = {"screen_cand_bsums": swar.screen_cand_bsums,
+               "naive_nib": swar.naive_nib, "naive_bsums": swar.naive_bsums,
+               "kmp_bsums": shift_and.kmp_bsums,
+               "rk_candidate_bsums": rk_roll.rk_candidate_bsums}
+    scan_kernel = {"boyer_moore": swar.screen_cand_bsums,
+                   "naive": swar.naive_bsums, "kmp": shift_and.kmp_bsums,
+                   "rabin_karp": rk_roll.rk_candidate_bsums}
+    for k in kernels.values():
+        k.launches = 0
 
-    for name, (text, pat) in corpora.items():
-        k1 = swar.screen_cand_bsums.launches
-        r = match(text, pat)  # the defaults: boyer_moore, device="cuda"
-        want = find_all(text, pat)
-        assert r.count == len(want) and r.offsets_list() == want and not r.overflow, (
-            f"(b) {name}: count {r.count} vs {len(want)}")
-        assert swar.screen_cand_bsums.launches > k1, f"(b) {name}: K1 not launched"
-        print(f"(b) match {name} m={len(pat)}: count {r.count} == oracle, offsets equal")
+    def drive(tag: str, text: bytes, pat: bytes, algo: str, dense: bool = False):
+        before = scan_kernel[algo].launches
+        t0 = time.perf_counter()
+        r = match(text, pat, algo=algo)  # the defaults, device="cuda"
+        dt = time.perf_counter() - t0
+        if dense:
+            want = np_find_all(np.frombuffer(text, np.uint8), pat)
+            cap = cfg.capacity
+            assert r.count == len(want) and r.overflow == (len(want) > cap), (
+                f"(b) {tag}: count {r.count} vs {len(want)}")
+            assert np.array_equal(r.offsets, want[:cap]), f"(b) {tag}: offsets"
+        else:
+            want = find_all(text, pat)
+            assert (r.count == len(want) and r.offsets_list() == want
+                    and not r.overflow), f"(b) {tag}: count {r.count} vs {len(want)}"
+        assert scan_kernel[algo].launches > before, f"(b) {tag}: kernel not launched"
+        print(f"(b) match {tag} algo={algo} m={len(pat)}: count {r.count} == "
+              f"{'numpy reference' if dense else 'oracle'}, offsets equal "
+              f"({dt:.2f} s from host bytes)")
+
+    for algo in ALGOS:
+        for name, (text, pat) in corpora.items():
+            drive(name, text, pat, algo)
+    drive("english", eng, b"lazy", "kmp", dense=True)
+    for m in (64, 256):
+        drive("english", eng, long_pats["english"][m], "kmp")
+    drive("english", eng, long_pats["english"][509], "rabin_karp")
 
     k2 = swar.naive_nib.launches
     r = match(dense_text, dense_pat)
     want = np_find_all(np.frombuffer(dense_text, np.uint8), dense_pat)
-    cap = MatchConfig().capacity
+    cap = cfg.capacity
     assert r.count == len(want) and r.overflow == (len(want) > cap), (
         f"(c) count {r.count} vs {len(want)}")
     assert np.array_equal(r.offsets, want[:cap]), "(c) offsets differ"
@@ -225,8 +343,7 @@ def main() -> int:
     assert np.array_equal(r.offsets, want), "(d) drained offsets differ"
     print(f"(d) drain capacity={drain_cap} on 16 MiB: all {r.count} offsets equal")
 
-    launches = {"screen_cand_bsums": swar.screen_cand_bsums.launches,
-                "naive_nib": swar.naive_nib.launches}
+    launches = {k: f.launches for k, f in kernels.items()}
     for k, v in launches.items():
         assert v > 0, f"kernel {k} was not launched by the main path"
     print(f"main-path launches: {launches}")
@@ -234,49 +351,91 @@ def main() -> int:
     # -- (e) timings ---------------------------------------------------------
     text, pat = corpora["english"]
     n = len(text)
+    padded = on_card("english", text)
+    p256, p509 = long_pats["english"][256], long_pats["english"][509]
     bm = BoyerMooreMatcher(pat, cfg, device=dev)
-    padded_np = pad_to_multiple(np.frombuffer(text, np.uint8), 2 * MIB)
-    padded = to_device(padded_np, dev)
     Nk, cut = swar.kernel_region(padded.numel(), bm.m, cfg.pallas_chunk_bytes)
     limit = min(n - bm.m, cut - 1)
     region = padded.view(torch.int32)[: Nk // 4]
     P, M, probes = bm.dev_tables["swar_p"], bm.swar_m, bm.dev_tables["probes"]
-    ms = {
-        "screen_cand_bsums": cuda_ms(
-            lambda: swar.screen_cand_bsums(region, limit, P, M, probes), 50),
-        "naive_nib": cuda_ms(lambda: swar.naive_nib(region, limit, P, M), 50),
-    }
-    plain_ms = {
-        "screen_cand_bsums": cuda_ms(
+    u8 = lambda b: np.frombuffer(b, np.uint8)  # noqa: E731
+    bt16 = torch.from_numpy(shift_and.b_table(u8(pat))).to(dev)
+    bt256 = torch.from_numpy(shift_and.b_table(u8(p256))).to(dev)
+    base = int(tables.RK_BASE)
+    t16 = torch.tensor([int(tables.rk_hash(u8(pat)))], device=dev)
+    t509 = torch.tensor([int(tables.rk_hash(u8(p509)))], device=dev)
+    cases = {  # (kernel, what): (kernel call, plain call, plain iterations)
+        ("screen_cand_bsums", "m=16"): (
+            lambda: swar.screen_cand_bsums(region, limit, P, M, probes),
             lambda: swar.screen_cand_bsums_plain(region, limit, P, M, probes), 5),
-        "naive_nib": cuda_ms(lambda: swar.naive_nib_plain(region, limit, P, M), 5),
+        ("naive_nib", "m=16"): (
+            lambda: swar.naive_nib(region, limit, P, M),
+            lambda: swar.naive_nib_plain(region, limit, P, M), 5),
+        ("naive_bsums", "m=16"): (
+            lambda: swar.naive_bsums(region, limit, P, M),
+            lambda: swar.naive_bsums_plain(region, limit, P, M), 5),
+        ("kmp_bsums", "m=16"): (
+            lambda: shift_and.kmp_bsums(region, n - 16, bt16, 16),
+            lambda: shift_and.kmp_bsums_plain(region, n - 16, bt16, 16), 5),
+        ("kmp_bsums", "m=256 K=8"): (
+            lambda: shift_and.kmp_bsums(region, n - 256, bt256, 256),
+            lambda: shift_and.kmp_bsums_plain(region, n - 256, bt256, 256), 2),
+        ("rk_candidate_bsums", "m=16"): (
+            lambda: rk_roll.rk_candidate_bsums(region, n - 16, t16, 16, base),
+            lambda: rk_roll.rk_candidate_bsums_plain(region, n - 16, t16, 16, base), 3),
+        ("rk_candidate_bsums", "m=509"): (
+            lambda: rk_roll.rk_candidate_bsums(region, n - 509, t509, 509, base),
+            lambda: rk_roll.rk_candidate_bsums_plain(region, n - 509, t509, 509, base), 1),
     }
-    for k in ms:
-        print(f"(e) {k} 256 MiB english m=16: kernel {ms[k]:.4f} ms, plain "
-              f"{plain_ms[k]:.4f} ms, {Nk / ms[k] / 1e6:.1f} GB/s kernel {card}")
-    run_ms = host_ms(lambda: bm.run(padded, n), iters=10)
-    print(f"(e) match device-resident 256 MiB english m=16: passes "
-          f"{[round(x, 4) for x in run_ms]} ms, best {min(run_ms):.4f} ms = "
-          f"{n / min(run_ms) / 1e6:.1f} GB/s {card}")
-    host = host_ms(lambda: match(text, pat), iters=3)
-    print(f"(e) match from host bytes 256 MiB english m=16: passes "
-          f"{[round(x, 4) for x in host]} ms, best {min(host):.4f} ms = "
-          f"{n / min(host) / 1e6:.1f} GB/s {card}")
+    ms, plain_ms = {}, {}
+    for (k, what), (kern, plain, plain_iters) in cases.items():
+        kt = cuda_ms(kern, 20)
+        pt = cuda_ms(plain, plain_iters, warmup=1)
+        if what == "m=16":
+            ms[k], plain_ms[k] = kt, pt
+        print(f"(e) {k} 256 MiB english {what}: kernel {kt:.4f} ms, plain "
+              f"{pt:.4f} ms, {Nk / kt / 1e6:.1f} GB/s kernel {card}")
+
+    for algo in ALGOS:
+        mt = matchers[algo](pat, cfg, device=dev)
+        run_ms = host_ms(lambda: mt.run(padded, n), iters=10)
+        dev_ms, per_run = device_profile(lambda: mt.run(padded, n), runs=5)
+        med = statistics.median(run_ms)
+        print(f"(e) match device-resident 256 MiB english m=16 algo={algo}: "
+              f"passes {[round(x, 4) for x in run_ms]} ms, best {min(run_ms):.4f} ms = "
+              f"{n / min(run_ms) / 1e6:.1f} GB/s; profiler: device {dev_ms:.4f} ms/run, "
+              f"{per_run:.0f} device events/run, idle share {1 - dev_ms / med:.3f} "
+              f"of the median pass {card}")
+        host = host_ms(lambda: match(text, pat, algo=algo), iters=2, passes=2)
+        print(f"(e) match from host bytes 256 MiB english m=16 algo={algo}: passes "
+              f"{[round(x, 4) for x in host]} ms, best {min(host):.4f} ms = "
+              f"{n / min(host) / 1e6:.1f} GB/s {card}")
+
+    km = KMPMatcher(p509, cfg, device=dev)
+    _, kcut = shift_and.kernel_region(padded.numel(), 509, cfg.pallas_chunk_bytes)
+    tail = padded[kcut:]
+    tail_ms = host_ms(lambda: kmp_ops.kmp_start_mask(tail, km.dev_tables["dfa"],
+                                                      cfg.kmp_chunk), iters=3)
+    run_ms = host_ms(lambda: km.run(padded, n), iters=3)
+    # kmp_start_mask scans nothing when the tail is shorter than m.
+    steps = 0 if 509 > tail.numel() else min(cfg.kmp_chunk, tail.numel()) + 508
+    print(f"(e) KMP m=509 dense-DFA tail ({tail.numel()} B, {steps} steps): "
+          f"passes {[round(x, 4) for x in tail_ms]} ms; "
+          f"match device-resident m=509: passes {[round(x, 4) for x in run_ms]} ms "
+          f"{card}")
 
     assert "jax" not in sys.modules, "the port imported jax"
-    src = f"{PKG}/csrc/swar.cu"
+    sources = {"screen_cand_bsums": ("swar.cu", "kernels/swar.py:477"),
+               "naive_nib": ("swar.cu", "kernels/swar.py:386"),
+               "naive_bsums": ("swar.cu", "kernels/swar.py:438"),
+               "kmp_bsums": ("shift_and.cu", "kernels/shift_and.py:245"),
+               "rk_candidate_bsums": ("rk_roll.cu", "kernels/rk_roll.py:93")}
     print(nvidia_smi())
     print(json.dumps({"kernels": [
-        {"name": "screen_cand_bsums", "route": "cuda", "source": src,
-         "replaces": f"{REF}/kernels/swar.py:477",
-         "launches": launches["screen_cand_bsums"],
-         "max_abs_err": errs["screen_cand_bsums"],
-         "ms": ms["screen_cand_bsums"], "plain_ms": plain_ms["screen_cand_bsums"]},
-        {"name": "naive_nib", "route": "cuda", "source": src,
-         "replaces": f"{REF}/kernels/swar.py:386",
-         "launches": launches["naive_nib"],
-         "max_abs_err": errs["naive_nib"],
-         "ms": ms["naive_nib"], "plain_ms": plain_ms["naive_nib"]},
+        {"name": k, "route": "cuda", "source": f"{PKG}/csrc/{src}",
+         "replaces": f"{REF}/{ref}", "launches": launches[k],
+         "max_abs_err": errs[k], "ms": ms[k], "plain_ms": plain_ms[k]}
+        for k, (src, ref) in sources.items()
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,9 @@
 
 The JAX package ``parallel_implementation_of_string_matching_algorithms_opencl_tpu``
 is the reference this package is held against; this one imports ``torch``
-and never ``jax``.  Ported so far: single-pattern Boyer-Moore ``match()``
-(with ``drain``), on two hand-written CUDA kernels for Hopper (``csrc/``).
+and never ``jax``.  Ported so far: single-pattern ``match()`` (with ``drain``)
+for all four algorithms, naive, Rabin-Karp, KMP and Boyer-Moore, on five
+hand-written CUDA kernels for Hopper (``csrc/``).
 The output contract is the reference's: the exact count, the sorted 0-based
 byte offsets of every overlapping match up to ``capacity``, an overflow
 flag, and every offset with ``drain=True``.

@@ -41,7 +41,9 @@ def match(
     **overrides,
 ) -> MatchResult:
     """Exact match: all (overlapping) occurrences as sorted 0-based byte
-    offsets, with the exact count.
+    offsets, with the exact count.  ``algo``: ``naive`` (``brute``),
+    ``rabin_karp`` (``rk``), ``kmp`` or ``boyer_moore`` (``bm``); all four
+    return the same result.
 
     ``drain=True`` returns every offset even past ``capacity`` (windowed
     re-extraction, ``Matcher.match_all``).  ``device`` defaults to

@@ -1,0 +1,118 @@
+// Rolling-hash Rabin-Karp screen for Hopper (sm_90a).
+//
+// Replaces kernels/rk_roll.py::_kernel (Pallas, TPU) with emit='bsums'.
+//
+// The window hash of m bytes x[s..s+m-1] is H = sum_j x[s+j] * B^(m-1-j)
+// mod 2^32 (ops/tables.rk_hash).  It rolls one byte at a time,
+//
+//     H <- H * B + in - out * B^m          (uint32 wraparound is the mod)
+//
+// where `in` is the byte entering the window and `out` the byte m places
+// before it, leaving.  B is odd, so native uint32 arithmetic gives the
+// reference's values bit for bit.
+//
+// One thread owns the starts of one 512-byte block.  It starts from H = 0
+// at the block's first byte with no departing byte for its first m steps
+// (bytes before the block read as 0), so after step i >= m-1 H is the hash
+// of the window starting at block-local j = i - (m-1).  It runs
+// 512 + m - 1 steps and counts the starts j in the block whose hash equals
+// any of the k targets and whose position is <= n_lim.  Hash hits are
+// candidates, not matches: ops/reconstruct.extract_region verifies and
+// recounts them.  The count goes straight to bs[block].
+//
+// Bound on the H100: latency and issue, not HBM.  Each step is a serial
+// multiply-add chain on H plus k compares; the entering bytes come 16 per
+// load, the departing bytes (the same stream m bytes behind, L1/L2 hits)
+// as five 4-byte loads per 16 steps aligned with funnel shifts.  Loads of
+// neighbouring threads are 512 bytes apart, so none is coalesced.  Making
+// it fast (the reference's word-level Horner split, a warp per block) is
+// later work.
+
+#include "scan.cuh"
+
+namespace {
+
+using tpm::byte_of;
+using tpm::kBlockBytes;
+using tpm::load16;
+
+constexpr int kThreads = 128;
+constexpr int kMaxPattern = 509;
+
+__global__ void __launch_bounds__(kThreads)
+rk_bsums_kernel(const uint8_t* __restrict__ text, long long n_bytes,
+                long long n_lim, int m, uint32_t B, uint32_t Bm,
+                const uint32_t* __restrict__ targets, int k,
+                int* __restrict__ bs) {
+  extern __shared__ uint32_t tgt[];  // the k target hashes
+  for (int t = threadIdx.x; t < k; t += kThreads) tgt[t] = targets[t];
+  __syncthreads();
+
+  const long long blk = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (blk >= n_bytes / kBlockBytes) return;
+  const long long base = blk * kBlockBytes;
+  const long long room = n_lim - base + 1;
+  const int lim = room < 0 ? 0 : (room > kBlockBytes ? kBlockBytes : (int)room);
+  const int steps = kBlockBytes + m - 1;
+  const uint32_t* words = reinterpret_cast<const uint32_t*>(text);
+  const long long n_words = n_bytes / 4;
+  // Departing bytes of the group at q start at block-local byte q - m:
+  // word offset wrel = floor((q - m) / 4), then a shift of sh bytes, the
+  // same for every group since q is a multiple of 16 (m <= 509 < 512).
+  const int sh = (-m) & 3;
+
+  uint32_t H = 0u;
+  int count = 0;
+  for (int q = 0; q < steps; q += 16) {
+    const uint4 v = load16(text, base + q, n_bytes);
+    const int wrel = (q - m + kBlockBytes) / 4 - kBlockBytes / 4;
+    uint32_t w[5];
+#pragma unroll
+    for (int t = 0; t < 5; ++t) {
+      const long long wi = base / 4 + wrel + t;
+      // Words before the block are "no departing byte yet": 0.
+      w[t] = (wrel + t >= 0 && wi < n_words) ? __ldg(words + wi) : 0u;
+    }
+    const uint4 o = make_uint4(__funnelshift_r(w[0], w[1], 8 * sh),
+                               __funnelshift_r(w[1], w[2], 8 * sh),
+                               __funnelshift_r(w[2], w[3], 8 * sh),
+                               __funnelshift_r(w[3], w[4], 8 * sh));
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      H = H * B + byte_of(v, i) - byte_of(o, i) * Bm;
+      const int j = q + i - (m - 1);
+      if (j >= 0 && j < lim) {
+        bool hit = false;
+        for (int p = 0; p < k; ++p) hit |= H == tgt[p];
+        count += (int)hit;
+      }
+    }
+  }
+  bs[blk] = count;
+}
+
+}  // namespace
+
+extern "C" {
+
+// text: the kernel region, n_bytes a multiple of 512, 16-byte aligned.
+// B: the odd base; Bm = B^m mod 2^32; targets: uint32[k].  bs must hold
+// n_bytes / 512 ints.
+int tpm_rk_candidate_bsums(const void* text, long long n_bytes,
+                           long long n_lim, int m, unsigned int B,
+                           unsigned int Bm, const void* targets, int k,
+                           void* bs, void* stream) {
+  if (n_bytes % kBlockBytes != 0 || m < 1 || m > kMaxPattern || k < 1 ||
+      (B & 1u) == 0u || reinterpret_cast<uintptr_t>(text) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const long long n_blocks = n_bytes / kBlockBytes;
+  if (n_blocks == 0) return 0;
+  const unsigned grid = (unsigned)((n_blocks + kThreads - 1) / kThreads);
+  rk_bsums_kernel<<<grid, kThreads, (size_t)k * sizeof(uint32_t),
+                    (cudaStream_t)stream>>>(
+      (const uint8_t*)text, n_bytes, n_lim, m, B, Bm,
+      (const uint32_t*)targets, k, (int*)bs);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,0 +1,45 @@
+// Shared pieces of the port's scan kernels (Hopper, sm_90a).
+//
+// Every kernel emits per-512-byte-block counts in byte order: bs[b] covers
+// bytes 512b..512b+511 of the kernel region.  Bytes and words at or past the
+// end of the region read as 0.  Each C entry launches on the given stream,
+// does not synchronise and returns cudaGetLastError(), which the Python
+// wrapper (utils/cuda_build.launch) turns into an error.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace tpm {
+
+constexpr int kBlockBytes = 512;  // bytes per output block sum
+constexpr int kBlockWords = 128;  // 32-bit words per output block sum
+
+__device__ __forceinline__ uint32_t load_word(const uint32_t* __restrict__ words,
+                                              long long j, long long n_words) {
+  return j < n_words ? __ldg(words + j) : 0u;
+}
+
+// 16 bytes at byte offset p (a multiple of 16).  The region holds whole
+// 512-byte blocks, so a 16-byte group lies either wholly inside it or wholly
+// past its end.
+__device__ __forceinline__ uint4 load16(const uint8_t* __restrict__ text,
+                                        long long p, long long n_bytes) {
+  return p < n_bytes ? __ldg(reinterpret_cast<const uint4*>(text + p))
+                     : make_uint4(0u, 0u, 0u, 0u);
+}
+
+// Byte b (0..15, a compile-time constant after unrolling) of a 16-byte group.
+__device__ __forceinline__ uint32_t byte_of(const uint4& v, int b) {
+  const uint32_t w = b < 4 ? v.x : b < 8 ? v.y : b < 12 ? v.z : v.w;
+  return (w >> (8 * (b & 3))) & 0xFFu;
+}
+
+}  // namespace tpm
+
+// Each csrc/<name>.cu is one translation unit and one shared library, so
+// every library that includes this header exports its own copy.
+extern "C" const char* tpm_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}

@@ -1,0 +1,109 @@
+"""Rolling-hash Rabin-Karp screen kernel (counterpart of the JAX package's
+``kernels/rk_roll.py``).
+
+The window hash ``H = sum_j x[s+j] * B^(m-1-j) mod 2**32``
+(``ops/tables.rk_hash``) rolls one byte at a time,
+``H <- H*B + in - out*B^m``, and windows whose hash equals a target are
+candidate starts; the caller verifies them.
+
+One kernel (``csrc/rk_roll.cu``), K5 ``rk_candidate_bsums``: candidate
+starts counted per 512-byte block, with a plain PyTorch version in this
+module and a launch counter (``rk_candidate_bsums.launches``).  A wrapper
+runs the plain version for a CPU tensor and launches the kernel for a CUDA
+tensor; there is no other route.  The region geometry is the Shift-AND
+kernel's (``shift_and.kernel_region``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops import rabin_karp as rk_ops
+from ..ops import tables
+from ..utils import cuda_build
+from ..utils.cuda_build import I64, INT, PTR, U32
+from . import shift_and, swar
+
+MAX_RK_PATTERN = 509  # the reference's per-sub-chunk halo bound
+
+
+def rk_roll_supported(m: int) -> bool:
+    """Kernel path eligibility (m = 1 and longer patterns take the plain
+    mask route, as in the reference)."""
+    return 2 <= m <= MAX_RK_PATTERN
+
+
+def rk_params(m: int, base: int) -> tuple[int, int]:
+    """(B, B^m), both wrapped mod 2**32; B must be odd."""
+    B = int(base) & rk_ops.MASK32
+    if B % 2 == 0:
+        raise ValueError("RK base must be odd (invertible mod 2**32)")
+    return B, pow(B, m, 1 << 32)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrapper
+# ---------------------------------------------------------------------------
+
+_SIGNATURES = {
+    "tpm_rk_candidate_bsums": [PTR, I64, I64, INT, U32, U32, PTR, INT, PTR],
+}
+
+
+def _check(words: torch.Tensor, targets: torch.Tensor, m: int) -> None:
+    shift_and.check_region(words)
+    if not 1 <= m <= MAX_RK_PATTERN:
+        raise ValueError(f"m must be in 1..{MAX_RK_PATTERN}, got {m}")
+    if targets.dtype != torch.int64:
+        raise TypeError(f"targets must be int64, got {targets.dtype}")
+    if targets.dim() != 1 or targets.numel() == 0:
+        raise ValueError(
+            f"targets must be 1-D and non-empty, got {tuple(targets.shape)}")
+    if targets.device != words.device:
+        raise ValueError(
+            f"targets are on {targets.device}, words on {words.device}")
+
+
+def rk_candidate_bsums_plain(words, n_lim: int, targets, m: int,
+                             base: int) -> torch.Tensor:
+    """Plain PyTorch version of ``rk_candidate_bsums`` (same contract): the
+    window hashes by direct sum (``ops/rabin_karp.rk_window_hashes``)."""
+    text = words.view(torch.uint8)
+    powers = torch.from_numpy(
+        tables.rk_constants(m, base)["powers"].astype("int64")).to(text.device)
+    h = rk_ops.rk_window_hashes(text, powers)
+    cand = torch.zeros_like(h, dtype=torch.bool)
+    for p in range(targets.numel()):
+        cand |= h == targets[p]
+    cand &= torch.arange(text.numel(), device=text.device) <= n_lim
+    return cand.view(-1, swar.BLOCK_BYTES).sum(1, dtype=torch.int32)
+
+
+def rk_candidate_bsums(words: torch.Tensor, n_lim: int, targets: torch.Tensor,
+                       m: int, base: int) -> torch.Tensor:
+    """K5, the rolling-hash screen over the kernel region.
+
+    ``words``: int32[Nw] region words (Nw a multiple of 128); ``n_lim``: the
+    largest start counted (min(n, Nk) - m); ``targets``: int64[k] uint32
+    hash values (``ops/tables.rk_hash`` with this ``base``).  Returns
+    int32[Nw/128]: per 512-byte block the starts s <= n_lim whose window
+    hash equals any target, a superset of the matches.  Replaces the
+    reference's ``_kernel`` with ``emit='bsums'`` (``rk_candidate_bsums``);
+    csrc/rk_roll.cu notes what bounds it."""
+    _check(words, targets, m)
+    B, Bm = rk_params(m, base)
+    if words.device.type == "cpu":
+        return rk_candidate_bsums_plain(words, n_lim, targets, m, base)
+    # uint32 bits as int32: values >= 2**31 move down by 2**32.
+    tgt = (targets - ((targets >> 31) << 32)).to(torch.int32).contiguous()
+    bs = torch.empty(words.numel() // swar.BLOCK_WORDS, dtype=torch.int32,
+                     device=words.device)
+    cuda_build.launch(cuda_build.load("rk_roll", _SIGNATURES),
+                      "tpm_rk_candidate_bsums", words.device,
+                      words.data_ptr(), 4 * words.numel(), int(n_lim), m, B,
+                      Bm, tgt.data_ptr(), tgt.numel(), bs.data_ptr())
+    rk_candidate_bsums.launches += 1
+    return bs
+
+
+rk_candidate_bsums.launches = 0

@@ -1,0 +1,147 @@
+"""Shift-AND prefix automaton: KMP's scan kernel (counterpart of the JAX
+package's ``kernels/shift_and.py``).
+
+The automaton ``D = ((D << 1) | 1) & B[c]`` tracks in bit j of D whether
+``pattern[:j+1]`` ends at the current byte, so a match ends where bit m-1
+is set.  ``B[c]`` has bit j set when ``pattern[j] == c``; one 32-bit word
+holds 32 pattern bytes, and K = ceil(m/32) words with a carry between them
+hold up to ``MAX_SHIFT_AND_PATTERN`` bytes.
+
+One kernel (``csrc/shift_and.cu``), K4 ``kmp_bsums``: the automaton's match
+starts counted per 512-byte block, with a plain PyTorch version in this
+module and a launch counter (``kmp_bsums.launches``).  A wrapper runs the
+plain version for a CPU tensor and launches the kernel for a CUDA tensor;
+there is no other route.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops import naive as naive_ops
+from ..utils import cuda_build
+from ..utils.cuda_build import I64, INT, PTR
+from . import swar
+
+MAX_STATE_WORDS = 8
+MAX_SHIFT_AND_PATTERN = 32 * MAX_STATE_WORDS  # 256, BASELINE config 3's range
+
+
+def shift_and_supported(m: int) -> bool:
+    return 1 <= m <= MAX_SHIFT_AND_PATTERN
+
+
+def state_words(m: int) -> int:
+    """K = ceil(m/32) state words of the automaton for m pattern bytes."""
+    return max(1, -(-m // 32))
+
+
+def b_table(pattern: np.ndarray) -> np.ndarray:
+    """int32[K, 256]: bit j of B[k, c] is set when pattern[32k + j] == c."""
+    pat = np.asarray(pattern, dtype=np.uint8)
+    B = np.zeros((state_words(len(pat)), 256), dtype=np.uint32)
+    for j, c in enumerate(pat):
+        B[j // 32, c] |= np.uint32(1) << np.uint32(j % 32)
+    return B.view(np.int32)
+
+
+def b_table_from_halves(halves: np.ndarray) -> np.ndarray:
+    """The reference's lane-replicated int32[K, 2, 8, 128] B-table halves
+    (bytes < 128, then >= 128, each repeated over 8 sublanes) as the port's
+    int32[K, 256] table."""
+    halves = np.asarray(halves)
+    return np.ascontiguousarray(halves[:, :, 0, :].reshape(halves.shape[0], 256))
+
+
+def kernel_region(N: int, m: int, chunk_bytes: int) -> tuple[int, int]:
+    """(Nk, cut) for the automaton and rolling-hash kernels, whose tile is
+    the reference's 128 * chunk_bytes (2 MiB at the default; the SWAR
+    kernels clamp the chunk to 4096 bytes, these do not)."""
+    return swar.tile_region(N, m, 128 * chunk_bytes)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrapper
+# ---------------------------------------------------------------------------
+
+_SIGNATURES = {"tpm_kmp_bsums": [PTR, I64, I64, PTR, INT, INT, PTR]}
+
+
+def check_region(words: torch.Tensor) -> None:
+    """The scan kernels' region: contiguous int32 words, whole 512-byte
+    blocks, on the CPU or a CUDA device (there 16-byte aligned)."""
+    if words.dtype != torch.int32:
+        raise TypeError(f"words must be int32, got {words.dtype}")
+    if words.dim() != 1 or words.numel() % swar.BLOCK_WORDS:
+        raise ValueError(
+            f"words must be 1-D with a multiple of {swar.BLOCK_WORDS} "
+            f"elements, got shape {tuple(words.shape)}"
+        )
+    if not words.is_contiguous():
+        raise ValueError("words must be contiguous")
+    if words.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {words.device}")
+    if words.device.type == "cuda" and words.data_ptr() % 16:
+        raise ValueError("words must start on a 16-byte boundary")
+
+
+def _check(words: torch.Tensor, bt: torch.Tensor, m: int) -> None:
+    check_region(words)
+    if not shift_and_supported(m):
+        raise ValueError(f"m must be in 1..{MAX_SHIFT_AND_PATTERN}, got {m}")
+    if bt.dtype != torch.int32 or not bt.is_contiguous():
+        raise TypeError("bt must be a contiguous int32 tensor")
+    if tuple(bt.shape) != (state_words(m), 256):
+        raise ValueError(
+            f"bt must be [{state_words(m)}, 256] for m={m}, got "
+            f"{tuple(bt.shape)}"
+        )
+    if bt.device != words.device:
+        raise ValueError(f"bt is on {bt.device}, words on {words.device}")
+
+
+def pattern_from_table(bt: torch.Tensor, m: int) -> torch.Tensor:
+    """uint8[m] pattern whose ``b_table`` is ``bt``: the byte whose B entry
+    has bit j set, for each j."""
+    j = torch.arange(m, device=bt.device)
+    bits = (bt[j // 32].to(torch.int64) >> (j % 32)[:, None]) & 1
+    return bits.argmax(1).to(torch.uint8)
+
+
+def kmp_bsums_plain(words, n_lim: int, bt, m: int) -> torch.Tensor:
+    """Plain PyTorch version of ``kmp_bsums`` (same contract).  The
+    automaton's hits are exactly the starts where the m bytes the table
+    encodes match, so this counts those starts by shifted compare instead
+    of running the automaton."""
+    text = words.view(torch.uint8)
+    hit = naive_ops.naive_start_mask(text, pattern_from_table(bt, m))
+    hit &= torch.arange(text.numel(), device=text.device) <= n_lim
+    return hit.view(-1, swar.BLOCK_BYTES).sum(1, dtype=torch.int32)
+
+
+def kmp_bsums(words: torch.Tensor, n_lim: int, bt: torch.Tensor,
+              m: int) -> torch.Tensor:
+    """K4, the Shift-AND scan over the kernel region.
+
+    ``words``: int32[Nw] region words (Nw a multiple of 128); ``n_lim``: the
+    largest start counted (the caller's clamp, min(n, Nk) - m); ``bt``:
+    int32[K, 256] from ``b_table`` of the m pattern bytes the automaton
+    runs.  Returns int32[Nw/128]: per 512-byte block the starts s <= n_lim
+    where those m bytes match.  Replaces the reference's ``_kernel`` with
+    ``emit='bsums'`` (``kmp_bsums``); csrc/shift_and.cu notes what bounds
+    it."""
+    _check(words, bt, m)
+    if words.device.type == "cpu":
+        return kmp_bsums_plain(words, n_lim, bt, m)
+    bs = torch.empty(words.numel() // swar.BLOCK_WORDS, dtype=torch.int32,
+                     device=words.device)
+    cuda_build.launch(cuda_build.load("shift_and", _SIGNATURES),
+                      "tpm_kmp_bsums", words.device, words.data_ptr(),
+                      4 * words.numel(), int(n_lim), bt.data_ptr(),
+                      bt.shape[0], m, bs.data_ptr())
+    kmp_bsums.launches += 1
+    return bs
+
+
+kmp_bsums.launches = 0

@@ -1,4 +1,4 @@
-"""SWAR matching kernels: host-side pattern words plus the two CUDA kernels.
+"""SWAR matching kernels: host-side pattern words plus three CUDA kernels.
 
 Counterpart of the JAX package's ``kernels/swar.py``.  Text is processed as
 little-endian int32 words (4 bytes each).  For each alignment a in 0..3, a
@@ -9,31 +9,33 @@ match starting at byte 4w + a satisfies
 where P[a]/M[a] are the pattern placed at byte offset a in a zeroed word
 buffer and its 0xFF byte-occupancy mask.
 
-Two kernels (``csrc/swar.cu``), each with a plain PyTorch version in this
+Three kernels (``csrc/swar.cu``), each with a plain PyTorch version in this
 module and a launch counter (``<wrapper>.launches``):
 
 - ``screen_cand_bsums`` (K1): the Boyer-Moore probe screen, candidate words
   counted per 512-byte block;
 - ``naive_nib`` (K2): the exact verify of every start as a nibble plane
-  plus per-block popcounts.
+  plus per-block popcounts;
+- ``naive_bsums`` (K3): the same exact verify emitting only the per-block
+  match counts (the naive matcher's scan).
 
 A wrapper runs the plain version for a CPU tensor and launches the kernel
-for a CUDA tensor; there is no other route.  Both emit block sums in byte
+for a CUDA tensor; there is no other route.  All emit block sums in byte
 order and read words past the end of their input as 0.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
 from ..utils import cuda_build
+from ..utils.cuda_build import I64, INT, PTR
 
 HALO_WORDS = 128          # the reference's 512-byte chunk halo
 MAX_PATTERN = HALO_WORDS * 4 - 3  # 509: kernel-path bound shared with it
 BLOCK_WORDS = 128         # words per 512-byte block sum
+BLOCK_BYTES = 4 * BLOCK_WORDS
 
 
 def swar_supported(m: int) -> bool:
@@ -42,14 +44,19 @@ def swar_supported(m: int) -> bool:
     return 1 <= m <= MAX_PATTERN
 
 
-def kernel_region(N: int, m: int, chunk_bytes: int) -> tuple[int, int]:
-    """(Nk, cut) for a padded text of N bytes: the kernels cover the first
-    Nk bytes (N floored to the reference's 128 * min(chunk_bytes, 4096)
-    tile), and positions from ``cut = Nk - (m-1)`` on belong to the tail.
-    Nk is 0 when the text is shorter than one tile."""
-    tile = 128 * min(chunk_bytes, 4096)
+def tile_region(N: int, m: int, tile: int) -> tuple[int, int]:
+    """(Nk, cut) for a padded text of N bytes and a kernel tile: the kernels
+    cover the first Nk bytes (N floored to the tile), and positions from
+    ``cut = Nk - (m-1)`` on belong to the tail.  Nk is 0 when the text is
+    shorter than one tile."""
     Nk = (N // tile) * tile
     return Nk, (Nk - (m - 1) if Nk else 0)
+
+
+def kernel_region(N: int, m: int, chunk_bytes: int) -> tuple[int, int]:
+    """``tile_region`` for the SWAR kernels (K1-K3), whose tile is the
+    reference's 128 * min(chunk_bytes, 4096)."""
+    return tile_region(N, m, 128 * min(chunk_bytes, 4096))
 
 
 def mask_words(m: int) -> np.ndarray:
@@ -161,35 +168,17 @@ def static_probes_from_table(pr: np.ndarray) -> tuple:
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-_PTR, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "tpm_screen_cand_bsums": [_PTR, _I64, _I64, _PTR, _PTR, _INT]
-    + [_INT] * 8 + [_PTR, _PTR],
-    "tpm_naive_nib": [_PTR, _I64, _I64, _PTR, _PTR, _INT, _PTR, _PTR, _PTR],
+    "tpm_screen_cand_bsums": [PTR, I64, I64, PTR, PTR, INT] + [INT] * 8 + [PTR],
+    "tpm_naive_nib": [PTR, I64, I64, PTR, PTR, INT, PTR, PTR],
+    "tpm_naive_bsums": [PTR, I64, I64, PTR, PTR, INT, PTR],
 }
 
 
-def _library() -> ctypes.CDLL:
-    lib = cuda_build.load("swar")
-    for fn, argtypes in _SIGNATURES.items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = _INT
-    lib.tpm_error_string.argtypes = [_INT]
-    lib.tpm_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def _launch(fn: str, device: torch.device, *args) -> None:
-    """Call C entry ``fn`` on ``device``'s current stream (appended as the
-    last argument); raise on a refused launch."""
-    lib = _library()
-    with torch.cuda.device(device):
-        err = getattr(lib, fn)(*args, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(
-            f"{fn} failed: CUDA error {err} "
-            f"({lib.tpm_error_string(err).decode()})"
-        )
+    """Call C entry ``fn`` of ``csrc/swar.cu`` on ``device``'s current
+    stream; raise on a refused launch."""
+    cuda_build.launch(cuda_build.load("swar", _SIGNATURES), fn, device, *args)
 
 
 def _check(words: torch.Tensor, P: torch.Tensor, M: torch.Tensor) -> None:
@@ -313,3 +302,30 @@ def naive_nib(words: torch.Tensor, n_lim: int, P: torch.Tensor,
 
 
 naive_nib.launches = 0
+
+
+def naive_bsums_plain(words, n_lim: int, P, M) -> torch.Tensor:
+    """Plain PyTorch version of ``naive_bsums``: ``naive_nib_plain``'s
+    block sums."""
+    return naive_nib_plain(words, n_lim, P, M)[1]
+
+
+def naive_bsums(words: torch.Tensor, n_lim: int, P: torch.Tensor,
+                M: torch.Tensor) -> torch.Tensor:
+    """K3, the naive matcher's scan: the exact verify of ``naive_nib``
+    without the nibble plane.  Returns int32[Nw/128], the exact matches per
+    512-byte block, each start 4w + a kept only where it is <= n_lim.
+    Replaces the reference's ``_naive_sparse_kernel`` (naive_nib with
+    emit_nib=False)."""
+    _check(words, P, M)
+    if words.device.type == "cpu":
+        return naive_bsums_plain(words, n_lim, P, M)
+    bs = torch.empty(words.numel() // BLOCK_WORDS, dtype=torch.int32,
+                     device=words.device)
+    _launch("tpm_naive_bsums", words.device, words.data_ptr(), words.numel(),
+            int(n_lim), P.data_ptr(), M.data_ptr(), P.shape[1], bs.data_ptr())
+    naive_bsums.launches += 1
+    return bs
+
+
+naive_bsums.launches = 0

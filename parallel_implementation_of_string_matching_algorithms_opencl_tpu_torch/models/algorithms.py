@@ -1,16 +1,21 @@
-"""Boyer-Moore matcher (counterpart of ``BoyerMooreMatcher`` in the JAX
-``models/algorithms.py``; the naive, Rabin-Karp and KMP matchers are still
-to be ported, ROADMAP.md Queue 1).
+"""The four single-pattern matchers: naive, Rabin-Karp, KMP, Boyer-Moore
+(counterparts of the classes in the JAX ``models/algorithms.py``).
 
-Pipeline on a padded text of N bytes:
+Each runs the same pipeline on a padded text of N bytes:
 
-1. K1 (``swar.screen_cand_bsums``): the probe screen over the kernel
-   region [0, Nk) emits candidate words per 512-byte block.  The probes
-   are the pattern words that Boyer-Moore's bad-character and good-suffix
-   shifts score as rarest — the vectorized form of BM's skip rule.
+1. a scan kernel over the kernel region [0, Nk) emits per-512-byte-block
+   counts: exact matches (naive, K3 ``swar.naive_bsums``), or candidates
+   that ``extract_region`` verifies and recounts (Boyer-Moore's probe
+   screen K1 ``swar.screen_cand_bsums``, Rabin-Karp's rolling hash K5
+   ``rk_roll.rk_candidate_bsums``, KMP's Shift-AND automaton K4
+   ``shift_and.kmp_bsums``, exact for m <= 32 and a prefix screen above);
 2. ``reconstruct.extract_region`` verifies the candidate chunks exactly
-   (escalating to the K2 rescan when they are too many).
-3. The tail [cut, N) is a plain shifted compare, merged after the region.
+   (escalating to the K2 rescan when they are too many);
+3. the tail [cut, N) takes the algorithm's plain mask, merged after the
+   region.
+
+Texts shorter than one kernel tile, and patterns a kernel does not take,
+take the algorithm's plain mask (``_mask``) over the whole text.
 """
 
 from __future__ import annotations
@@ -18,8 +23,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..kernels import swar
+from ..kernels import rk_roll, shift_and, swar
+from ..ops import kmp as kmp_ops
 from ..ops import naive as naive_ops
+from ..ops import rabin_karp as rk_ops
 from ..ops import reconstruct
 from ..ops import tables
 from ..utils.config import DEFAULT_CONFIG, MatchConfig
@@ -29,34 +36,201 @@ from .registry import register_matcher
 
 def tables_from_reference(tables_np: dict, probe_layout, device) -> dict:
     """Device tensors for a matcher's numpy tables (the dict a JAX or port
-    matcher keeps as ``tables``), plus the probe layout (a JAX matcher's
-    ``config.bm_probe_layout``) checked into tuple form."""
-    layout = tuple(tuple(int(k) for k in ks) for ks in probe_layout)
-    if len(layout) != 4 or any(not 1 <= len(ks) <= 2 for ks in layout):
-        raise ValueError(f"bad probe layout {probe_layout!r}")
-    out = {
-        k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-        for k, v in tables_np.items()
-    }
-    out["probes"] = layout
+    matcher keeps as ``tables``).  The reference's lane-replicated Shift-AND
+    halves (``sa_bt``/``sa_bt32``, int32[K, 2, 8, 128]) become the port's
+    int32[K, 256] tables; uint32 tables (Rabin-Karp ``powers`` and
+    ``pattern_hash``) become int64 of the same values.  ``probe_layout``
+    (a JAX matcher's ``config.bm_probe_layout``, Boyer-Moore only) is
+    checked into tuple form under ``"probes"``; pass None for the other
+    matchers."""
+    out = {}
+    for k, v in tables_np.items():
+        v = np.asarray(v)
+        if k in ("sa_bt", "sa_bt32") and v.ndim == 4:
+            v = shift_and.b_table_from_halves(v)
+        if v.dtype == np.uint32:
+            v = v.astype(np.int64)
+        out[k] = torch.from_numpy(np.array(v, order="C")).to(device)
+    if probe_layout is not None:
+        layout = tuple(tuple(int(k) for k in ks) for ks in probe_layout)
+        if len(layout) != 4 or any(not 1 <= len(ks) <= 2 for ks in layout):
+            raise ValueError(f"bad probe layout {probe_layout!r}")
+        out["probes"] = layout
     return out
 
 
-@register_matcher
-class BoyerMooreMatcher(Matcher):
-    """Bad-char + good-suffix Boyer-Moore, as probe screen + exact verify."""
+def _swar_tables(pat: np.ndarray) -> dict:
+    return {"swar_p": swar.pattern_words(pat)[0]}
 
-    name = "boyer_moore"
+
+class _RegionMatcher(Matcher):
+    """Shared by the four matchers: device tables, the byte masks that
+    ``extract_region`` verifies with, and the region + tail merge."""
 
     def __init__(self, pattern: bytes, config: MatchConfig = DEFAULT_CONFIG,
                  device="cuda"):
         super().__init__(pattern, config, device)
-        layout = self.config.bm_probe_layout
-        if layout is None:  # bm_probes='static': positional probes
-            layout = swar.probe_indices(swar.mask_words(self.m))
         self.swar_m = torch.from_numpy(swar.mask_words(self.m)).to(self.device)
-        self.dev_tables = tables_from_reference(self.tables, layout,
+        self.dev_tables = tables_from_reference(self.tables,
+                                                self._probe_layout(),
                                                 self.device)
+
+    def _probe_layout(self):
+        return None
+
+    def _region_and_tail(self, bs, text, n: int, cut: int, tail_mask):
+        """(count, offsets, overflow) from the region's block sums ``bs``
+        and the tail's start mask over [cut, N)."""
+        words = text.view(torch.int32)
+        # Logical n, not padded N: padded N lets a pattern ending in NUL
+        # bytes match inside the zero padding.
+        limit = min(n - self.m, cut - 1)
+        c1, o1, v1 = reconstruct.extract_region(
+            bs, reconstruct.full_words2d(words), self.dev_tables["swar_p"],
+            self.swar_m, self.m, limit, self.config.capacity,
+        )
+        return self._merge_tail(c1, o1, v1, cut, n, tail_mask)
+
+
+@register_matcher
+class NaiveMatcher(_RegionMatcher):
+    """Exact verify of every start (K3), offsets by the chunk gather."""
+
+    name = "naive"
+
+    def _precompute(self, pat: np.ndarray) -> dict:
+        return _swar_tables(pat)
+
+    def _mask(self, text: torch.Tensor) -> torch.Tensor:
+        return naive_ops.naive_start_mask(text, self.pattern_dev)
+
+    def _direct(self, text: torch.Tensor, n: int):
+        m = self.m
+        if not swar.swar_supported(m):
+            return None
+        Nk, cut = swar.kernel_region(text.shape[0], m,
+                                     self.config.pallas_chunk_bytes)
+        if Nk == 0:
+            return None
+        limit = min(n - m, cut - 1)
+        bs = swar.naive_bsums(text.view(torch.int32)[: Nk // 4], limit,
+                              self.dev_tables["swar_p"], self.swar_m)
+        tail = naive_ops.naive_start_mask(text[cut:], self.pattern_dev)
+        return self._region_and_tail(bs, text, n, cut, tail)
+
+
+@register_matcher
+class RabinKarpMatcher(_RegionMatcher):
+    """Rolling hash mod 2**32 as a candidate screen (K5) + exact verify."""
+
+    name = "rabin_karp"
+
+    @classmethod
+    def _tile_bytes(cls, config: MatchConfig) -> int:
+        return 128 * config.pallas_chunk_bytes
+
+    def _precompute(self, pat: np.ndarray) -> dict:
+        c = tables.rk_constants(len(pat), self.config.rk_base)
+        return {
+            "powers": c["powers"],
+            "pattern_hash": tables.rk_hash(pat, c),
+            **_swar_tables(pat),
+        }
+
+    def _mask(self, text: torch.Tensor) -> torch.Tensor:
+        t = self.dev_tables
+        return rk_ops.rk_start_mask(text, self.pattern_dev, t["powers"],
+                                    t["pattern_hash"],
+                                    self.config.verify_capacity)
+
+    def _direct(self, text: torch.Tensor, n: int):
+        m = self.m
+        if not rk_roll.rk_roll_supported(m):
+            return None
+        Nk, cut = shift_and.kernel_region(text.shape[0], m,
+                                          self.config.pallas_chunk_bytes)
+        if Nk == 0:
+            return None
+        base = self.config.rk_base
+        # Hash hits are candidates: extract_region verifies and recounts.
+        bs = rk_roll.rk_candidate_bsums(
+            text.view(torch.int32)[: Nk // 4], min(n - m, cut - 1),
+            self.dev_tables["pattern_hash"].reshape(1), m,
+            int(tables.RK_BASE) if base is None else base,
+        )
+        return self._region_and_tail(bs, text, n, cut, self._mask(text[cut:]))
+
+
+@register_matcher
+class KMPMatcher(_RegionMatcher):
+    """Prefix automaton: the Shift-AND kernel (K4) over the region, the
+    dense DFA (``ops/kmp``) over the tail and where the kernel does not run.
+
+    - m <= 32: the one-word automaton of the whole pattern; its block sums
+      are exact.
+    - 32 < m <= 509 with ``kmp_long='screen'`` (default): the one-word
+      automaton of ``pattern[:32]`` as a candidate screen, clamped at its own
+      n - 32; ``extract_region`` verifies the full pattern and re-clamps at
+      n - m, which alone makes the result exact near the end of the text.
+    - 32 < m <= 256 with ``kmp_long='ripple'``: the K-word automaton of the
+      whole pattern.
+    """
+
+    name = "kmp"
+
+    # The screen's bound: extract_region's dense branch rescans with the
+    # SWAR kernel, whose halo covers m <= swar.MAX_PATTERN (509).
+    MAX_SCREEN_M = swar.MAX_PATTERN
+    SCREEN_M = 32
+
+    @classmethod
+    def _tile_bytes(cls, config: MatchConfig) -> int:
+        return 128 * config.pallas_chunk_bytes
+
+    def _precompute(self, pat: np.ndarray) -> dict:
+        t = {"dfa": tables.kmp_dfa(pat), **_swar_tables(pat)}
+        if shift_and.shift_and_supported(len(pat)):
+            t["sa_bt"] = shift_and.b_table(pat)
+        if self.SCREEN_M < len(pat) <= self.MAX_SCREEN_M:
+            t["sa_bt32"] = shift_and.b_table(pat[: self.SCREEN_M])
+        return t
+
+    def _screen_mode(self) -> bool:
+        return (self.m > self.SCREEN_M and self.config.kmp_long == "screen"
+                and "sa_bt32" in self.dev_tables)
+
+    def _mask(self, text: torch.Tensor) -> torch.Tensor:
+        return kmp_ops.kmp_start_mask(text, self.dev_tables["dfa"],
+                                      self.config.kmp_chunk)
+
+    def _direct(self, text: torch.Tensor, n: int):
+        m = self.m
+        if self._screen_mode():
+            bt, mk = self.dev_tables["sa_bt32"], self.SCREEN_M
+        elif "sa_bt" in self.dev_tables:
+            bt, mk = self.dev_tables["sa_bt"], m
+        else:
+            return None
+        Nk, cut = shift_and.kernel_region(text.shape[0], m,
+                                          self.config.pallas_chunk_bytes)
+        if Nk == 0:
+            return None
+        # The kernel's own clamp, min(n, Nk) - mk: for the screen it counts
+        # prefix starts in (n - m, n - 32] too, which extract_region's
+        # limit min(n - m, cut - 1) rejects.
+        bs = shift_and.kmp_bsums(text.view(torch.int32)[: Nk // 4],
+                                 min(n, Nk) - mk, bt, mk)
+        return self._region_and_tail(bs, text, n, cut, self._mask(text[cut:]))
+
+
+@register_matcher
+class BoyerMooreMatcher(_RegionMatcher):
+    """Bad-char + good-suffix Boyer-Moore, as probe screen (K1) + exact
+    verify.  The probes are the pattern words that Boyer-Moore's
+    bad-character and good-suffix shifts score as rarest: the vectorized
+    form of BM's skip rule."""
+
+    name = "boyer_moore"
 
     @classmethod
     def _specialize_config(cls, config: MatchConfig,
@@ -71,11 +245,17 @@ class BoyerMooreMatcher(Matcher):
                 return config.replace(bm_probe_layout=layout)
         return config
 
+    def _probe_layout(self):
+        layout = self.config.bm_probe_layout
+        if layout is None:  # bm_probes='static': positional probes
+            layout = swar.probe_indices(swar.mask_words(self.m))
+        return layout
+
     def _precompute(self, pat: np.ndarray) -> dict:
         return {
             "bad_char": tables.bm_bad_char(pat),
             "good_suffix": tables.bm_good_suffix(pat),
-            "swar_p": swar.pattern_words(pat)[0],
+            **_swar_tables(pat),
         }
 
     def _mask(self, text: torch.Tensor) -> torch.Tensor:
@@ -90,16 +270,10 @@ class BoyerMooreMatcher(Matcher):
         if Nk == 0:
             return None
         t = self.dev_tables
-        words = text.view(torch.int32)
-        # Logical n, not padded N: padded N lets a pattern ending in NUL
-        # bytes match inside the zero padding.  The region's largest valid
-        # start is both K1's clamp and extract_region's limit.
-        limit = min(n - m, cut - 1)
-        bs = swar.screen_cand_bsums(words[: Nk // 4], limit, t["swar_p"],
+        # The region's largest valid start is both K1's clamp and
+        # extract_region's limit.
+        bs = swar.screen_cand_bsums(text.view(torch.int32)[: Nk // 4],
+                                    min(n - m, cut - 1), t["swar_p"],
                                     self.swar_m, t["probes"])
-        c1, o1, v1 = reconstruct.extract_region(
-            bs, reconstruct.full_words2d(words), t["swar_p"], self.swar_m, m,
-            limit, self.config.capacity,
-        )
         tail = naive_ops.naive_start_mask(text[cut:], self.pattern_dev)
-        return self._merge_tail(c1, o1, v1, cut, n, tail)
+        return self._region_and_tail(bs, text, n, cut, tail)

@@ -10,12 +10,6 @@ _ALIASES = {
     "rk": "rabin_karp",
     "brute": "naive",
 }
-# Algorithms of the JAX package not ported yet, with their ROADMAP.md item.
-_UNPORTED = {
-    "naive": "Queue 1 item 4",
-    "kmp": "Queue 1 item 5",
-    "rabin_karp": "Queue 1 item 6",
-}
 
 
 def register_matcher(cls: type[Matcher]) -> type[Matcher]:
@@ -25,11 +19,6 @@ def register_matcher(cls: type[Matcher]) -> type[Matcher]:
 
 def get_matcher(name: str) -> type[Matcher]:
     key = _ALIASES.get(name, name)
-    if key in _UNPORTED:
-        raise NotImplementedError(
-            f"algorithm {key!r} is not ported to the PyTorch package yet "
-            f"(ROADMAP.md, {_UNPORTED[key]})"
-        )
     if key not in _REGISTRY:
         raise KeyError(
             f"unknown algorithm {name!r}; available: {sorted(_REGISTRY)}"

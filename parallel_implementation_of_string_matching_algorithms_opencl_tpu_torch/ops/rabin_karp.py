@@ -1,0 +1,72 @@
+"""Rabin-Karp window hashes and exact start mask (counterpart of the JAX
+``ops/rabin_karp.py``).
+
+Serves the region after the kernel's cut, texts shorter than one kernel
+tile, m = 1 and patterns longer than ``kernels.rk_roll.MAX_RK_PATTERN``,
+and the plain version of the rolling-hash kernel.
+
+Hashes are uint32 values mod 2**32 (``ops/tables.rk_hash``).  PyTorch's
+uint32 support is partial, so they are held in int64: every term
+byte * B^k is below 2**40, a sum of up to 2**23 of them cannot overflow,
+and one ``& 0xFFFFFFFF`` at the end gives the wrapped value.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .naive import naive_start_mask
+
+# Candidate-verification width of the reference (``verify_capacity``).
+DEFAULT_VERIFY_CAPACITY = 131072
+# Windows x m up to this many elements are hashed in one multiply-sum;
+# larger texts take one pass per pattern byte.
+_UNFOLD_ELEMENTS = 1 << 24
+
+MASK32 = 0xFFFFFFFF
+
+
+def rk_window_hashes(text: torch.Tensor, powers: torch.Tensor) -> torch.Tensor:
+    """int64[N] of window hashes H[i] = sum_j text[i+j] * powers[j] mod
+    2**32, reading zeros past the end.  ``powers``: int64[m], the uint32
+    values B^(m-1-j)."""
+    n_pos = text.shape[0]
+    m = powers.shape[0]
+    padded = torch.cat([text, text.new_zeros(m)]).to(torch.int64)
+    if n_pos * m <= _UNFOLD_ELEMENTS:
+        h = (padded.unfold(0, m, 1)[:n_pos] * powers).sum(1)
+    else:
+        h = padded[:n_pos] * powers[0]
+        for j in range(1, m):
+            h += padded[j : j + n_pos] * powers[j]
+    return h & MASK32
+
+
+def verify_candidates(text: torch.Tensor, pattern: torch.Tensor,
+                      cand: torch.Tensor,
+                      verify_capacity: int = DEFAULT_VERIFY_CAPACITY):
+    """Exact start mask restricted to the candidates ``cand`` (bool[N]).
+    Up to ``verify_capacity`` candidates are verified by a gathered window
+    compare; more take a full shifted compare, which bounds the gather's
+    memory as the reference's fallback does.  Windows read zeros past the
+    end."""
+    n_pos = text.shape[0]
+    m = pattern.shape[0]
+    idx = torch.nonzero(cand).flatten()
+    if idx.numel() > min(verify_capacity, n_pos):
+        return cand & naive_start_mask(text, pattern)
+    padded = torch.cat([text, text.new_zeros(m)])
+    win = padded[idx[:, None] + torch.arange(m, device=text.device)]
+    ok = (win == pattern).all(1)
+    out = torch.zeros(n_pos, dtype=torch.bool, device=text.device)
+    out[idx[ok]] = True
+    return out
+
+
+def rk_start_mask(text: torch.Tensor, pattern: torch.Tensor,
+                  powers: torch.Tensor, pattern_hash,
+                  verify_capacity: int = DEFAULT_VERIFY_CAPACITY):
+    """Exact start mask via hash screen + verification (single pattern);
+    ``pattern_hash`` is the pattern's uint32 hash as an int or a tensor."""
+    cand = rk_window_hashes(text, powers) == pattern_hash
+    return verify_candidates(text, pattern, cand, verify_capacity)

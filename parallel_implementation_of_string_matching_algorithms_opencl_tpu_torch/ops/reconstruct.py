@@ -3,8 +3,9 @@
 ``_verify_chunks``, ``extract_region``).
 
 A scan kernel's block sums mark which 512-byte blocks may hold matches:
-exact counts from the naive verify, a candidate superset from the
-Boyer-Moore probe screen.  The 4 KiB chunks holding candidates are gathered
+exact counts from the naive verify (and the KMP automaton for m <= 32), a
+candidate superset from the Boyer-Moore probe screen, the Rabin-Karp hash
+screen and the KMP ``pattern[:32]`` screen.  The 4 KiB chunks holding candidates are gathered
 from the ``(N/4096, 1024)`` word view and verified by the same word
 compares as the kernels, so every branch recounts exactly.  When the
 candidate chunks outnumber the gather width, one full rescan by the naive

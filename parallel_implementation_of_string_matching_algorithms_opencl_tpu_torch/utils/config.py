@@ -1,9 +1,9 @@
 """Match configuration (counterpart of the JAX package's ``utils/config.py``).
 
-Only the fields the single-pattern Boyer-Moore path reads are carried.  The
-JAX-only switches (``use_pallas``, ``interpret``, the AOT cache) have no
-meaning here: on a CUDA tensor the kernels always run, on a CPU tensor their
-plain PyTorch versions do.  Modes of the reference that this package does not
+Only the fields the single-pattern matchers (naive, Rabin-Karp, KMP,
+Boyer-Moore) read are carried.  The JAX-only switches (``use_pallas``,
+``interpret``, the AOT cache) have no meaning here: on a CUDA tensor the
+kernels always run, on a CPU tensor their plain PyTorch versions do.  Modes of the reference that this package does not
 implement yet raise ``NotImplementedError`` at construction.
 """
 
@@ -16,6 +16,10 @@ import dataclasses
 # bad-character plus good-suffix shift, 'table' by bad-character shift alone,
 # 'static' takes the first and last full pattern words.
 PORTED_PROBES = ("table_gs", "table", "static")
+# KMP execution for m > 32: 'screen' runs the one-word automaton of
+# pattern[:32] as a candidate screen, 'ripple' the K-word automaton of the
+# whole pattern (m <= 256).
+KMP_LONG = ("screen", "ripple")
 # Reference modes not ported yet (ROADMAP.md, Queue 2).
 UNPORTED = {
     "bm_variant": ("cursor",),
@@ -31,6 +35,13 @@ class MatchConfig:
 
     # Offset-buffer capacity per call (counts stay exact on overflow).
     capacity: int = 65536
+    # Rabin-Karp candidates verified by a gathered window compare; more take
+    # a full shifted compare (ops/rabin_karp.verify_candidates).
+    verify_capacity: int = 131072
+    # Lane chunk length of the KMP dense-DFA scan (ops/kmp.kmp_start_mask).
+    kmp_chunk: int = 2048
+    # KMP kernel execution for m > 32 (see KMP_LONG).
+    kmp_long: str = "screen"
     # Boyer-Moore screen probe selection (see PORTED_PROBES).
     bm_probes: str = "table_gs"
     # Concrete per-pattern probe layout (tuple[4] of tuples of word
@@ -45,12 +56,16 @@ class MatchConfig:
     # the (N/4096, 1024) int32 word view always exists).
     pad_multiple: int = 4096
     # Tile geometry shared with the JAX package: the kernel region is the
-    # text floored to 128 * min(pallas_chunk_bytes, 4096) bytes, so one
-    # config puts the kernel/tail seam at the same byte in both packages.
+    # text floored to 128 * min(pallas_chunk_bytes, 4096) bytes for the
+    # SWAR kernels (naive, Boyer-Moore) and to 128 * pallas_chunk_bytes for
+    # the KMP and Rabin-Karp kernels, so one config puts the kernel/tail
+    # seam at the same byte in both packages.
     pallas_chunk_bytes: int = 16384
     # 'sparse': the kernels emit per-512-byte block sums and offsets are
     # reconstructed from gathered candidate chunks.
     emission: str = "sparse"
+    # Rabin-Karp base (an odd uint32); None = ops.tables.RK_BASE.
+    rk_base: int | None = None
 
     def __post_init__(self):
         if self.pad_multiple < 4 or self.pad_multiple % 4:
@@ -64,8 +79,18 @@ class MatchConfig:
                 f"(whole 512-byte blocks per chunk), got "
                 f"{self.pallas_chunk_bytes}"
             )
-        if self.capacity < 1:
-            raise ValueError(f"capacity must be >= 1, got {self.capacity}")
+        for field in ("capacity", "verify_capacity", "kmp_chunk"):
+            if getattr(self, field) < 1:
+                raise ValueError(
+                    f"{field} must be >= 1, got {getattr(self, field)}")
+        if self.kmp_long not in KMP_LONG:
+            raise ValueError(f"unknown kmp_long {self.kmp_long!r}")
+        if self.rk_base is not None and not (
+            0 < self.rk_base < 1 << 32 and self.rk_base % 2
+        ):
+            raise ValueError(
+                f"rk_base must be an odd uint32 (invertible mod 2**32), got "
+                f"{self.rk_base}")
         for field, values in UNPORTED.items():
             if getattr(self, field) in values:
                 raise NotImplementedError(

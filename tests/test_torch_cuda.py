@@ -1,5 +1,5 @@
-"""PyTorch port on the card: the CUDA kernels against their plain versions
-and ``match()`` against the oracle.  Every test here is marked ``cuda`` and
+"""PyTorch port on the card: the CUDA kernels (K1-K5) against their plain
+versions and ``match()`` of every algorithm against the oracle.  Every test here is marked ``cuda`` and
 skips without a GPU.
 
 This file imports neither jax nor the JAX package, so it also runs on a
@@ -19,10 +19,13 @@ from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch impo
     match,
 )
 from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.kernels import (
+    rk_roll,
+    shift_and,
     swar,
 )
 from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.ops import (
     reconstruct,
+    tables,
 )
 from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.utils.io import (
     gen_english,
@@ -110,3 +113,92 @@ def test_match_end_to_end(cuda_device, monkeypatch):
         assert (swar.naive_nib.launches > k2) == dense
         r = match(text, pat, config=cfg, drain=True)
         assert r.offsets_list() == want
+
+
+def _u8(b: bytes) -> np.ndarray:
+    return np.frombuffer(b, np.uint8)
+
+
+@pytest.mark.parametrize("pat", PATTERNS, ids=lambda p: f"m{len(p)}")
+@pytest.mark.parametrize("n", [3 * TILE + 1234, 4 * TILE], ids=["n<Nk", "n=Nk"])
+def test_scan_kernels_bit_exact_against_plain(pat, n, cuda_device):
+    """K3, K4 (the whole pattern up to 256 bytes, and the pattern[:32]
+    screen above 32) and K5 equal their plain versions (tolerance 0); each
+    launch adds one to its counter.  At C = 4096 the three kernels share
+    the SWAR region."""
+    words, limit, P, M = _region(n, pat, cuda_device)
+    m = len(pat)
+    Nk = 4 * words.numel()
+    assert shift_and.kernel_region(-(-n // TILE) * TILE, m, 4096)[0] == Nk
+    k3 = swar.naive_bsums.launches
+    exact = swar.naive_bsums(words, limit, P, M)
+    torch.cuda.synchronize()
+    assert swar.naive_bsums.launches == k3 + 1
+    assert torch.equal(exact, swar.naive_bsums_plain(words, limit, P, M))
+    heads = [pat[:32]] if m > 32 else []
+    if shift_and.shift_and_supported(m):
+        heads.append(pat)
+    for head in heads:
+        mk = len(head)
+        bt = torch.from_numpy(shift_and.b_table(_u8(head))).to(cuda_device)
+        k4 = shift_and.kmp_bsums.launches
+        bs = shift_and.kmp_bsums(words, min(n, Nk) - mk, bt, mk)
+        torch.cuda.synchronize()
+        assert shift_and.kmp_bsums.launches == k4 + 1
+        assert torch.equal(bs, shift_and.kmp_bsums_plain(words, min(n, Nk) - mk, bt, mk))
+        if mk == m:
+            assert torch.equal(bs, exact)
+    if rk_roll.rk_roll_supported(m):
+        base = int(tables.RK_BASE)
+        tgt = torch.tensor([int(tables.rk_hash(_u8(pat)))], device=cuda_device)
+        k5 = rk_roll.rk_candidate_bsums.launches
+        bs = rk_roll.rk_candidate_bsums(words, limit, tgt, m, base)
+        torch.cuda.synchronize()
+        assert rk_roll.rk_candidate_bsums.launches == k5 + 1
+        assert torch.equal(bs, rk_roll.rk_candidate_bsums_plain(words, limit, tgt, m, base))
+        assert bool((bs >= exact).all())
+
+
+@pytest.mark.parametrize("m", [33, 64, 100, 200, 256])
+def test_kmp_multiword_automaton_bit_exact(m, cuda_device):
+    """K4 at K = 2..8 state words (kmp_long='ripple'), exact match counts."""
+    pat = bytes(gen_english(m, seed=900 + m))
+    words, limit, P, M = _region(3 * TILE + 77, pat, cuda_device)
+    bt = torch.from_numpy(shift_and.b_table(_u8(pat))).to(cuda_device)
+    bs = shift_and.kmp_bsums(words, limit, bt, m)
+    assert torch.equal(bs, shift_and.kmp_bsums_plain(words, limit, bt, m))
+    assert torch.equal(bs, swar.naive_bsums_plain(words, limit, P, M))
+    assert int(bs.sum()) >= 4
+
+
+def test_rk_kernel_other_base_and_targets(cuda_device):
+    """K5 with a non-default odd base and several targets (the
+    multi-pattern form), against its plain version."""
+    pat = b"quick brown fox "
+    words, limit, _, _ = _region(2 * TILE, pat, cuda_device)
+    base = 0x9E3779B1
+    c = tables.rk_constants(16, base)
+    tgt = torch.tensor([int(tables.rk_hash(_u8(p), c)) for p in
+                        (pat, b"lazy dog and cat", b"\xff" * 16)],
+                       device=cuda_device)
+    bs = rk_roll.rk_candidate_bsums(words, limit, tgt, 16, base)
+    assert torch.equal(bs, rk_roll.rk_candidate_bsums_plain(words, limit, tgt, 16, base))
+    assert int(bs.sum()) > 5
+
+
+@pytest.mark.parametrize("algo", ["naive", "kmp", "rabin_karp"])
+def test_match_end_to_end_per_algorithm(algo, cuda_device):
+    """match() of each algorithm on 4 MiB: exact against the oracle, one
+    launch of its scan kernel per call; drain complete."""
+    text = bytes(gen_english(4 << 20, seed=22))
+    cfg = MatchConfig(capacity=4096)
+    kernel = {"naive": swar.naive_bsums, "kmp": shift_and.kmp_bsums,
+              "rabin_karp": rk_roll.rk_candidate_bsums}[algo]
+    for pat in (b"quick brown fox ", b"e ", text[1000:1064], text[5000:5509]):
+        before = kernel.launches
+        r = match(text, pat, algo=algo, config=cfg)
+        want = find_all(text, pat)
+        assert r.count == len(want) and r.offsets_list() == want[:4096]
+        assert kernel.launches == before + 1
+    r = match(text, b"the ", algo=algo, config=cfg, drain=True)
+    assert r.offsets_list() == find_all(text, b"the ")

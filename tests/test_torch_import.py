@@ -1,5 +1,5 @@
-"""PyTorch port: import isolation from JAX, the explicit device, and the
-modes that are not ported yet."""
+"""PyTorch port: import isolation from JAX, the explicit device, the
+algorithms, and the modes that are not ported yet."""
 
 import os
 import subprocess
@@ -59,15 +59,17 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 
 def test_pattern_list_and_unported_algorithms_raise():
+    """A list of patterns (the multi-pattern slice) still raises; all four
+    algorithms and their aliases run."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         match(b"abc", [b"a", b"b"], device="cpu")
-    for algo in ("naive", "kmp", "rabin_karp", "rk", "brute"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            match(b"abc", b"a", algo=algo, device="cpu")
+    for algo in ("naive", "kmp", "rabin_karp", "rk", "brute", "bm",
+                 "boyer_moore"):
+        assert match(b"abcab", b"ab", algo=algo, device="cpu").offsets_list() == [0, 3]
     with pytest.raises(KeyError):
         match(b"abc", b"a", algo="nope", device="cpu")
-    assert match(b"abcab", b"ab", algo="bm", device="cpu").count == 2
-    assert port.available_algorithms() == ["boyer_moore"]
+    assert port.available_algorithms() == ["boyer_moore", "kmp", "naive",
+                                           "rabin_karp"]
     with pytest.raises(ValueError):
         match(b"abc", b"", device="cpu")
 

@@ -10,8 +10,10 @@ source, in parallel), then:
     for bit, at the shapes the main paths give it (256 MiB corpora): K1
     ``screen_cand_bsums``, K2 ``naive_nib`` and K3 ``naive_bsums`` on every
     corpus; K4 ``kmp_bsums`` (K = 1 at m=16, the m=64 screen on
-    pattern[:32], K = 2 at m=64, K = 8 at m=256) and K5
-    ``rk_candidate_bsums`` (m=16, m=509) on English and DNA;
+    pattern[:32], K = 2 at m=64, K = 8 at m=256), K5
+    ``rk_candidate_bsums`` (m=16, m=509, and k=8 targets) and K6
+    ``rk_candidate_pmask`` (k=8 m=16 with BASELINE config 2's patterns,
+    k=31 m=12, k=2 m=509, k=1 m=2) on English and DNA;
 (b) drives ``match()`` for every algorithm (the defaults: Boyer-Moore,
     then naive, KMP and Rabin-Karp) on 256 MiB English, DNA and UTF-8
     corpora against the pure-Python oracle; KMP also at m=4, 64 and 256,
@@ -19,12 +21,20 @@ source, in parallel), then:
 (c) drives a match-dense case that must take the K2 rescan, against a
     numpy shifted-compare reference;
 (d) checks that ``drain=True`` returns every offset past ``capacity``;
+(f) drives ``match`` with pattern lists against the numpy reference:
+    BASELINE config 2 at full size (1 GB English, 8 patterns, capacity
+    2**19, default ``multi_gather='pselect'`` on K6), then at 256 MiB
+    ``multi_gather='blocks'`` and k=64 (both on K5), a mixed-length
+    Rabin-Karp list, a Boyer-Moore list and a drained list, and a dense
+    m=2 list at 64 MiB that takes the K2 rescan;
 (e) times every kernel and its plain version with CUDA events, ``match``
     per algorithm on a device-resident text (host clock, and device time
-    and idle share from torch.profiler) and from host bytes, and the KMP
-    dense-DFA tail at m=509.
+    and idle share from torch.profiler) and from host bytes, the KMP
+    dense-DFA tail at m=509, K6 at 256 MiB and 1 GB, and config 2's
+    ``RabinKarpMultiMatcher.run`` on the device-resident 1 GB text and
+    from host bytes.
 
-The launch counters are zeroed before (b) and read after (d): each kernel
+The launch counters are zeroed before (b) and read after (f): each kernel
 must have been launched by that main-path run.  Prints the card's name and
 power limit, one JSON line describing the kernels, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises (exit code != 0);
@@ -42,6 +52,7 @@ import time
 PKG = "parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch"
 REF = "parallel_implementation_of_string_matching_algorithms_opencl_tpu"
 MIB = 1 << 20
+CONFIG2_BYTES = 1_000_000_000  # BASELINE config 2's 1 GB corpus
 ALGOS = ("boyer_moore", "naive", "kmp", "rabin_karp")
 
 
@@ -54,16 +65,33 @@ def nvidia_smi() -> str:
 
 
 def np_find_all(t, pat: bytes):
-    """Every start of ``pat`` in uint8 array ``t`` by shifted compares."""
+    """Every start of ``pat`` in uint8 array ``t``, ascending: the starts
+    of its first byte, narrowed by one byte compare per pattern byte."""
     import numpy as np
 
     m = len(pat)
     if len(t) < m:
         return np.empty(0, np.int64)
-    hit = t[: len(t) - m + 1] == pat[0]
+    idx = np.flatnonzero(t[: len(t) - m + 1] == pat[0])
     for j in range(1, m):
-        hit &= t[j : len(t) - m + 1 + j] == pat[j]
-    return np.flatnonzero(hit)
+        idx = idx[t[idx + j] == pat[j]]
+    return idx
+
+
+def config2_patterns(text: bytes) -> list[bytes]:
+    """BASELINE config 2's eight 16-byte patterns (bench/matrix.py:310-315):
+    four phrases and four slices of the corpus itself."""
+    n = len(text)
+    return [b"quick brown fox ", b"lazy dog and cat", b"parallel device ",
+            b"search algorithm", text[1000:1016], text[n // 2 : n // 2 + 16],
+            text[n // 3 : n // 3 + 16], text[n - 4096 : n - 4080]]
+
+
+def spread(text: bytes, k: int, m: int) -> list[bytes]:
+    """k slices of m bytes at evenly spread offsets of ``text``."""
+    step = (len(text) - m) // (k + 1)
+    return [text[step * (i + 1) + 13 * i : step * (i + 1) + 13 * i + m]
+            for i in range(k)]
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -131,6 +159,7 @@ def main() -> int:
     from conformance.oracle import find_all
     from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch import (
         MatchConfig,
+        RabinKarpMultiMatcher,
         match,
     )
     from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.kernels import (
@@ -151,6 +180,7 @@ def main() -> int:
         kmp as kmp_ops,
     )
     from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.ops import (
+        reconstruct,
         tables,
     )
     from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.utils import (
@@ -219,7 +249,7 @@ def main() -> int:
 
     # -- (a) kernels vs plain versions on the card ---------------------------
     names = ("screen_cand_bsums", "naive_nib", "naive_bsums", "kmp_bsums",
-             "rk_candidate_bsums")
+             "rk_candidate_bsums", "rk_candidate_pmask")
     errs = dict.fromkeys(names, 0)
     lines = []
 
@@ -281,6 +311,27 @@ def main() -> int:
             hold("rk_candidate_bsums", f"{name} m={m}", bs,
                  rk_roll.rk_candidate_bsums_plain(region, lim, tgt, m, base))
             lines.append(f"  {name} m={m}: hash candidates {int(bs.sum())}")
+        # K6 with k targets; K5 with the same k = 8 (the 'blocks' route).
+        for what, pats in (("k=8 m=16 config-2", config2_patterns(text)),
+                           ("k=31 m=12", spread(text, 31, 12)),
+                           ("k=2 m=509", spread(text, 2, 509)),
+                           ("k=1 m=2", [text[777:779]])):
+            m = len(pats[0])
+            Nk, _ = shift_and.kernel_region(padded.numel(), m, cfg.pallas_chunk_bytes)
+            region = padded.view(torch.int32)[: Nk // 4]
+            c = tables.rk_constants(m, base)
+            tgt = torch.tensor([int(tables.rk_hash(np.frombuffer(p, np.uint8), c))
+                                for p in pats], device=dev)
+            lim = min(n, Nk) - m
+            pm = rk_roll.rk_candidate_pmask(region, lim, tgt, m, base)
+            hold("rk_candidate_pmask", f"{name} {what}", pm,
+                 rk_roll.rk_candidate_pmask_plain(region, lim, tgt, m, base))
+            lines.append(f"  {name} {what}: blocks flagged {int((pm != 0).sum())}")
+            if len(pats) == 8:
+                bs = rk_roll.rk_candidate_bsums(region, lim, tgt, m, base)
+                hold("rk_candidate_bsums", f"{name} {what} (blocks route)", bs,
+                     rk_roll.rk_candidate_bsums_plain(region, lim, tgt, m, base))
+                lines.append(f"  {name} {what}: hash candidates {int(bs.sum())}")
     print("(a) kernels bit-exact against their plain versions (tolerance 0):")
     for s in lines:
         print(f"  {s}")
@@ -289,7 +340,8 @@ def main() -> int:
     kernels = {"screen_cand_bsums": swar.screen_cand_bsums,
                "naive_nib": swar.naive_nib, "naive_bsums": swar.naive_bsums,
                "kmp_bsums": shift_and.kmp_bsums,
-               "rk_candidate_bsums": rk_roll.rk_candidate_bsums}
+               "rk_candidate_bsums": rk_roll.rk_candidate_bsums,
+               "rk_candidate_pmask": rk_roll.rk_candidate_pmask}
     scan_kernel = {"boyer_moore": swar.screen_cand_bsums,
                    "naive": swar.naive_bsums, "kmp": shift_and.kmp_bsums,
                    "rabin_karp": rk_roll.rk_candidate_bsums}
@@ -343,6 +395,77 @@ def main() -> int:
     assert np.array_equal(r.offsets, want), "(d) drained offsets differ"
     print(f"(d) drain capacity={drain_cap} on 16 MiB: all {r.count} offsets equal")
 
+    # -- (f) pattern lists ---------------------------------------------------
+    k5_f, k6_f = rk_roll.rk_candidate_bsums.launches, rk_roll.rk_candidate_pmask.launches
+
+    def drive_many(tag: str, text: bytes, pats, want=None, **kw):
+        """``match(text, pats, **kw)`` against the numpy reference: counts
+        exact; offsets all of them (drain) or the first ``capacity``, with
+        overflow set exactly when the count exceeds it."""
+        t_np = np.frombuffer(text, np.uint8)
+        if want is None:
+            want = [np_find_all(t_np, p) for p in pats]
+        cap = kw.get("config", cfg).capacity
+        k2, k5, k6 = (swar.naive_nib.launches, rk_roll.rk_candidate_bsums.launches,
+                      rk_roll.rk_candidate_pmask.launches)
+        t0 = time.perf_counter()
+        rs = match(text, pats, **kw)
+        dt = time.perf_counter() - t0
+        for p, r, w in zip(pats, rs, want):
+            assert r.pattern == p and r.count == len(w), (
+                f"(f) {tag} {p!r}: count {r.count} vs {len(w)}")
+            if kw.get("drain"):
+                assert not r.overflow and np.array_equal(r.offsets, w), f"(f) {tag} {p!r}"
+            else:
+                assert r.overflow == (len(w) > cap), f"(f) {tag} {p!r}: overflow"
+                assert np.array_equal(r.offsets, w[:cap]), f"(f) {tag} {p!r}: offsets"
+        print(f"(f) {tag}: k={len(pats)} m={sorted({len(p) for p in pats})} "
+              f"capacity {cap}: counts {[r.count for r in rs]} == numpy reference, "
+              f"offsets equal{' (all, drained)' if kw.get('drain') else ''}, overflow "
+              f"{[r.overflow for r in rs] if any(r.overflow for r in rs) else False}; "
+              f"algos {sorted({r.algo for r in rs})}; launches K5 "
+              f"{rk_roll.rk_candidate_bsums.launches - k5}, K6 "
+              f"{rk_roll.rk_candidate_pmask.launches - k6}, K2 "
+              f"{swar.naive_nib.launches - k2} ({dt:.2f} s from host bytes)")
+        return rs
+
+    # BASELINE config 2 at full size (bench/matrix.py:288-390).
+    t0 = time.perf_counter()
+    big = gen_english(CONFIG2_BYTES, seed=2)
+    big_np = np.frombuffer(big, np.uint8)
+    c2_pats = config2_patterns(big)
+    c2_cap = 524288  # bench/matrix.py:316, _cap(2e-4 * n)
+    c2_cfg = MatchConfig(capacity=c2_cap, verify_capacity=c2_cap)
+    c2_want = [np_find_all(big_np, p) for p in c2_pats]
+    print(f"(f) config 2 corpus and numpy reference: {time.perf_counter() - t0:.1f} s")
+    k6 = rk_roll.rk_candidate_pmask.launches
+    rs = drive_many("config 2, 1 GB English", big, c2_pats, want=c2_want,
+                    algo="rabin_karp", config=c2_cfg)
+    assert all(r.algo == "rabin_karp_multi" and not r.overflow for r in rs)
+    assert rk_roll.rk_candidate_pmask.launches == k6 + 1, "(f) config 2 did not take K6"
+
+    k5 = rk_roll.rk_candidate_bsums.launches
+    drive_many("blocks, 256 MiB English", eng, config2_patterns(eng),
+               algo="rabin_karp", config=cfg.replace(multi_gather="blocks"))
+    k64 = spread(eng, 60, 12) + [f"P{i:02d}pattern64".encode() for i in range(4)]
+    drive_many("k=64, 256 MiB English", eng, k64, algo="rabin_karp")
+    assert rk_roll.rk_candidate_bsums.launches == k5 + 2, "(f) blocks/k=64 did not take K5"
+    rs = drive_many("mixed lengths, 256 MiB English", eng,
+                    [b"quick brown fox ", b"the ", b"lazy dog and cat", b"and ",
+                     eng[5000:5509], b"fox ", b"e"], algo="rabin_karp")
+    assert [r.algo for r in rs].count("rabin_karp") == 2  # the groups of one
+    drive_many("Boyer-Moore list, 256 MiB English", eng,
+               [b"quick brown fox ", b"the ", eng[5000:5509]])
+    drive_many("drained list, 256 MiB English", eng, [b"the ", b"quick brown fox "],
+               algo="rabin_karp", drain=True)
+    k2 = swar.naive_nib.launches
+    rs = drive_many("dense m=2, 64 MiB English", dense_text, [b"e ", b" t", b"th"],
+                    algo="rabin_karp", config=cfg.replace(capacity=4096))
+    assert all(r.overflow for r in rs) and swar.naive_nib.launches >= k2 + 3, (
+        "(f) the dense list did not take the K2 rescan")
+    assert rk_roll.rk_candidate_pmask.launches > k6_f and \
+        rk_roll.rk_candidate_bsums.launches > k5_f, "(f) K5/K6 not launched"
+
     launches = {k: f.launches for k, f in kernels.items()}
     for k, v in launches.items():
         assert v > 0, f"kernel {k} was not launched by the main path"
@@ -364,6 +487,8 @@ def main() -> int:
     base = int(tables.RK_BASE)
     t16 = torch.tensor([int(tables.rk_hash(u8(pat)))], device=dev)
     t509 = torch.tensor([int(tables.rk_hash(u8(p509)))], device=dev)
+    t8 = torch.tensor([int(tables.rk_hash(u8(p))) for p in config2_patterns(text)],
+                      device=dev)
     cases = {  # (kernel, what): (kernel call, plain call, plain iterations)
         ("screen_cand_bsums", "m=16"): (
             lambda: swar.screen_cand_bsums(region, limit, P, M, probes),
@@ -386,12 +511,18 @@ def main() -> int:
         ("rk_candidate_bsums", "m=509"): (
             lambda: rk_roll.rk_candidate_bsums(region, n - 509, t509, 509, base),
             lambda: rk_roll.rk_candidate_bsums_plain(region, n - 509, t509, 509, base), 1),
+        ("rk_candidate_bsums", "k=8 m=16"): (
+            lambda: rk_roll.rk_candidate_bsums(region, n - 16, t8, 16, base),
+            lambda: rk_roll.rk_candidate_bsums_plain(region, n - 16, t8, 16, base), 3),
+        ("rk_candidate_pmask", "k=8 m=16"): (
+            lambda: rk_roll.rk_candidate_pmask(region, n - 16, t8, 16, base),
+            lambda: rk_roll.rk_candidate_pmask_plain(region, n - 16, t8, 16, base), 3),
     }
     ms, plain_ms = {}, {}
     for (k, what), (kern, plain, plain_iters) in cases.items():
         kt = cuda_ms(kern, 20)
         pt = cuda_ms(plain, plain_iters, warmup=1)
-        if what == "m=16":
+        if what == "m=16" or k == "rk_candidate_pmask":
             ms[k], plain_ms[k] = kt, pt
         print(f"(e) {k} 256 MiB english {what}: kernel {kt:.4f} ms, plain "
               f"{pt:.4f} ms, {Nk / kt / 1e6:.1f} GB/s kernel {card}")
@@ -424,12 +555,49 @@ def main() -> int:
           f"match device-resident m=509: passes {[round(x, 4) for x in run_ms]} ms "
           f"{card}")
 
+    # Config 2 at 1 GB: K6 alone, the per-pattern extraction branch it
+    # leads to, and RabinKarpMultiMatcher.run on the device-resident text.
+    big_dev = to_device(pad_to_multiple(big_np, 2 * MIB), dev)
+    nb = len(big)
+    mm = RabinKarpMultiMatcher(c2_pats, c2_cfg, device=dev)
+    big_region = big_dev.view(torch.int32)  # the padded text is whole tiles
+    tgt = mm.dev_tables["hashes"]
+    kt = cuda_ms(lambda: rk_roll.rk_candidate_pmask(big_region, nb - 16, tgt, 16, base), 10)
+    pt = cuda_ms(lambda: rk_roll.rk_candidate_pmask_plain(big_region, nb - 16, tgt, 16, base),
+                 1, warmup=1)
+    print(f"(e) rk_candidate_pmask 1 GB english k=8 m=16 (config 2): kernel {kt:.4f} ms, "
+          f"plain {pt:.4f} ms, {big_region.numel() * 4 / kt / 1e6:.1f} GB/s kernel {card}")
+    torch.cuda.empty_cache()
+    pm = rk_roll.rk_candidate_pmask(big_region, nb - 16, tgt, 16, base)
+    width = reconstruct.SPARSE_CHUNKS
+    for p_i, p in enumerate(c2_pats):
+        chunks = int(((pm >> p_i) & 1).view(-1, 8).amax(1).sum())
+        print(f"(e) config 2 pattern {p_i} {p!r}: {len(c2_want[p_i])} matches, "
+              f"{chunks} candidate chunks -> "
+              f"{'K2 rescan' if chunks > width else 'chunk gather'} (width {width})")
+    run_ms = host_ms(lambda: mm.run(big_dev, nb), iters=5)
+    dev_ms, per_run = device_profile(lambda: mm.run(big_dev, nb), runs=3)
+    med = statistics.median(run_ms)
+    print(f"(e) config 2 RabinKarpMultiMatcher.run device-resident 1 GB k=8 m=16: "
+          f"passes {[round(x, 4) for x in run_ms]} ms, median {med:.4f} ms = "
+          f"{nb / med / 1e6:.1f} GB/s; profiler: device {dev_ms:.4f} ms/run, "
+          f"{per_run:.0f} device events/run, idle share {1 - dev_ms / med:.3f} of the "
+          f"median pass {card}")
+    host = host_ms(lambda: match(big, c2_pats, algo="rabin_karp", config=c2_cfg),
+                   iters=1, passes=2)
+    print(f"(e) config 2 match from host bytes 1 GB: passes "
+          f"{[round(x, 4) for x in host]} ms, best {min(host):.4f} ms = "
+          f"{nb / min(host) / 1e6:.1f} GB/s {card}")
+
     assert "jax" not in sys.modules, "the port imported jax"
     sources = {"screen_cand_bsums": ("swar.cu", "kernels/swar.py:477"),
                "naive_nib": ("swar.cu", "kernels/swar.py:386"),
                "naive_bsums": ("swar.cu", "kernels/swar.py:438"),
                "kmp_bsums": ("shift_and.cu", "kernels/shift_and.py:245"),
-               "rk_candidate_bsums": ("rk_roll.cu", "kernels/rk_roll.py:93")}
+               "rk_candidate_bsums": ("rk_roll.cu", "kernels/rk_roll.py:93"),
+               "rk_candidate_pmask": ("rk_roll.cu",
+                                      "kernels/rk_roll.py:93 emit='pmask' + "
+                                      f"{REF}/kernels/shift_and.py:196")}
     print(nvidia_smi())
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": f"{PKG}/csrc/{src}",

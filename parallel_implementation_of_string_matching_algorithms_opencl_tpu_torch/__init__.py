@@ -2,9 +2,11 @@
 
 The JAX package ``parallel_implementation_of_string_matching_algorithms_opencl_tpu``
 is the reference this package is held against; this one imports ``torch``
-and never ``jax``.  Ported so far: single-pattern ``match()`` (with ``drain``)
-for all four algorithms, naive, Rabin-Karp, KMP and Boyer-Moore, on five
-hand-written CUDA kernels for Hopper (``csrc/``).
+and never ``jax``.  Ported so far: single-device ``match()`` (with ``drain``)
+for all four algorithms, naive, Rabin-Karp, KMP and Boyer-Moore, of one
+pattern or a list of them (multi-pattern Rabin-Karp shares one hash pass
+per group of equal-length patterns), on six hand-written CUDA kernels for
+Hopper (``csrc/``).
 The output contract is the reference's: the exact count, the sorted 0-based
 byte offsets of every overlapping match up to ``capacity``, an overflow
 flag, and every offset with ``drain=True``.
@@ -12,6 +14,7 @@ flag, and every offset with ``drain=True``.
 
 from .api import MatchResult, available_algorithms, match
 from .models.base import Matcher
+from .models.multi import RabinKarpMultiMatcher
 from .models.registry import get_matcher, register_matcher
 from .utils.config import MatchConfig
 
@@ -21,6 +24,7 @@ __all__ = [
     "match",
     "MatchResult",
     "Matcher",
+    "RabinKarpMultiMatcher",
     "MatchConfig",
     "get_matcher",
     "register_matcher",

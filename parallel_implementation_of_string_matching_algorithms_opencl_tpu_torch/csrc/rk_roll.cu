@@ -1,6 +1,7 @@
 // Rolling-hash Rabin-Karp screen for Hopper (sm_90a).
 //
-// Replaces kernels/rk_roll.py::_kernel (Pallas, TPU) with emit='bsums'.
+// Replaces kernels/rk_roll.py::_kernel (Pallas, TPU) with emit='bsums' (K5)
+// and with emit='pmask' plus kernels/shift_and.py::_end_to_start_pmask (K6).
 //
 // The window hash of m bytes x[s..s+m-1] is H = sum_j x[s+j] * B^(m-1-j)
 // mod 2^32 (ops/tables.rk_hash).  It rolls one byte at a time,
@@ -19,6 +20,15 @@
 // any of the k targets and whose position is <= n_lim.  Hash hits are
 // candidates, not matches: ops/reconstruct.extract_region verifies and
 // recounts them.  The count goes straight to bs[block].
+//
+// K6 is the same kernel with kPmask set: instead of counting, it ORs bit p
+// into the block's mask when a start's hash equals target p (k <= 31, so the
+// sign bit is never used).  Bit p of bs[block] is then exactly "some start
+// s <= n_lim in this block hashes to pattern p", the tightest per-pattern
+// superset of the block's true starts.  The reference's mask is wider (its
+// end-word fold reaches a few bytes into the neighbouring blocks, and each
+// TPU sub-chunk rolls cold over zero front padding); every bit set here is
+// set there too.
 //
 // Bound on the H100: latency and issue, not HBM.  Each step is a serial
 // multiply-add chain on H plus k compares; the entering bytes come 16 per
@@ -39,11 +49,12 @@ using tpm::load16;
 constexpr int kThreads = 128;
 constexpr int kMaxPattern = 509;
 
+template <bool kPmask>
 __global__ void __launch_bounds__(kThreads)
-rk_bsums_kernel(const uint8_t* __restrict__ text, long long n_bytes,
-                long long n_lim, int m, uint32_t B, uint32_t Bm,
-                const uint32_t* __restrict__ targets, int k,
-                int* __restrict__ bs) {
+rk_scan_kernel(const uint8_t* __restrict__ text, long long n_bytes,
+               long long n_lim, int m, uint32_t B, uint32_t Bm,
+               const uint32_t* __restrict__ targets, int k,
+               int* __restrict__ bs) {
   extern __shared__ uint32_t tgt[];  // the k target hashes
   for (int t = threadIdx.x; t < k; t += kThreads) tgt[t] = targets[t];
   __syncthreads();
@@ -62,7 +73,7 @@ rk_bsums_kernel(const uint8_t* __restrict__ text, long long n_bytes,
   const int sh = (-m) & 3;
 
   uint32_t H = 0u;
-  int count = 0;
+  uint32_t out = 0u;  // K5: candidate count; K6: pattern-hit mask
   for (int q = 0; q < steps; q += 16) {
     const uint4 v = load16(text, base + q, n_bytes);
     const int wrel = (q - m + kBlockBytes) / 4 - kBlockBytes / 4;
@@ -82,13 +93,35 @@ rk_bsums_kernel(const uint8_t* __restrict__ text, long long n_bytes,
       H = H * B + byte_of(v, i) - byte_of(o, i) * Bm;
       const int j = q + i - (m - 1);
       if (j >= 0 && j < lim) {
-        bool hit = false;
-        for (int p = 0; p < k; ++p) hit |= H == tgt[p];
-        count += (int)hit;
+        if (kPmask) {
+          for (int p = 0; p < k; ++p) out |= (uint32_t)(H == tgt[p]) << p;
+        } else {
+          bool hit = false;
+          for (int p = 0; p < k; ++p) hit |= H == tgt[p];
+          out += (uint32_t)hit;
+        }
       }
     }
   }
-  bs[blk] = count;
+  bs[blk] = (int)out;
+}
+
+template <bool kPmask>
+int launch_scan(const void* text, long long n_bytes, long long n_lim, int m,
+                unsigned int B, unsigned int Bm, const void* targets, int k,
+                void* bs, void* stream) {
+  if (n_bytes % kBlockBytes != 0 || m < 1 || m > kMaxPattern || k < 1 ||
+      (kPmask && k > 31) || (B & 1u) == 0u ||
+      reinterpret_cast<uintptr_t>(text) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const long long n_blocks = n_bytes / kBlockBytes;
+  if (n_blocks == 0) return 0;
+  const unsigned grid = (unsigned)((n_blocks + kThreads - 1) / kThreads);
+  rk_scan_kernel<kPmask><<<grid, kThreads, (size_t)k * sizeof(uint32_t),
+                           (cudaStream_t)stream>>>(
+      (const uint8_t*)text, n_bytes, n_lim, m, B, Bm,
+      (const uint32_t*)targets, k, (int*)bs);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -102,17 +135,17 @@ int tpm_rk_candidate_bsums(const void* text, long long n_bytes,
                            long long n_lim, int m, unsigned int B,
                            unsigned int Bm, const void* targets, int k,
                            void* bs, void* stream) {
-  if (n_bytes % kBlockBytes != 0 || m < 1 || m > kMaxPattern || k < 1 ||
-      (B & 1u) == 0u || reinterpret_cast<uintptr_t>(text) % 16 != 0)
-    return (int)cudaErrorInvalidValue;
-  const long long n_blocks = n_bytes / kBlockBytes;
-  if (n_blocks == 0) return 0;
-  const unsigned grid = (unsigned)((n_blocks + kThreads - 1) / kThreads);
-  rk_bsums_kernel<<<grid, kThreads, (size_t)k * sizeof(uint32_t),
-                    (cudaStream_t)stream>>>(
-      (const uint8_t*)text, n_bytes, n_lim, m, B, Bm,
-      (const uint32_t*)targets, k, (int*)bs);
-  return (int)cudaGetLastError();
+  return launch_scan<false>(text, n_bytes, n_lim, m, B, Bm, targets, k, bs,
+                            stream);
+}
+
+// The same arguments; k must be in 1..31.  bs[b] gets the k-bit mask.
+int tpm_rk_candidate_pmask(const void* text, long long n_bytes,
+                           long long n_lim, int m, unsigned int B,
+                           unsigned int Bm, const void* targets, int k,
+                           void* bs, void* stream) {
+  return launch_scan<true>(text, n_bytes, n_lim, m, B, Bm, targets, k, bs,
+                           stream);
 }
 
 }  // extern "C"

@@ -6,12 +6,14 @@ The window hash ``H = sum_j x[s+j] * B^(m-1-j) mod 2**32``
 ``H <- H*B + in - out*B^m``, and windows whose hash equals a target are
 candidate starts; the caller verifies them.
 
-One kernel (``csrc/rk_roll.cu``), K5 ``rk_candidate_bsums``: candidate
-starts counted per 512-byte block, with a plain PyTorch version in this
-module and a launch counter (``rk_candidate_bsums.launches``).  A wrapper
-runs the plain version for a CPU tensor and launches the kernel for a CUDA
-tensor; there is no other route.  The region geometry is the Shift-AND
-kernel's (``shift_and.kernel_region``).
+Two kernels (``csrc/rk_roll.cu``, one template): K5 ``rk_candidate_bsums``
+counts candidate starts per 512-byte block; K6 ``rk_candidate_pmask`` sets,
+per block, bit p when a start hashes to pattern p (the multi-pattern
+screen, k <= 31).  Each has a plain PyTorch version in this module and a
+launch counter (``.launches``).  A wrapper runs the plain version for a CPU
+tensor and launches the kernel for a CUDA tensor; there is no other route.
+The region geometry is the Shift-AND kernel's
+(``shift_and.kernel_region``).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from ..utils.cuda_build import I64, INT, PTR, U32
 from . import shift_and, swar
 
 MAX_RK_PATTERN = 509  # the reference's per-sub-chunk halo bound
+MAX_PMASK_PATTERNS = 31  # one bit per pattern, the sign bit unused
 
 
 def rk_roll_supported(m: int) -> bool:
@@ -42,15 +45,15 @@ def rk_params(m: int, base: int) -> tuple[int, int]:
 
 
 # ---------------------------------------------------------------------------
-# Kernel wrapper
+# Kernel wrappers
 # ---------------------------------------------------------------------------
 
-_SIGNATURES = {
-    "tpm_rk_candidate_bsums": [PTR, I64, I64, INT, U32, U32, PTR, INT, PTR],
-}
+_ARGS = [PTR, I64, I64, INT, U32, U32, PTR, INT, PTR]
+_SIGNATURES = {"tpm_rk_candidate_bsums": _ARGS, "tpm_rk_candidate_pmask": _ARGS}
 
 
-def _check(words: torch.Tensor, targets: torch.Tensor, m: int) -> None:
+def _check(words: torch.Tensor, targets: torch.Tensor, m: int,
+           base: int) -> None:
     shift_and.check_region(words)
     if not 1 <= m <= MAX_RK_PATTERN:
         raise ValueError(f"m must be in 1..{MAX_RK_PATTERN}, got {m}")
@@ -62,21 +65,54 @@ def _check(words: torch.Tensor, targets: torch.Tensor, m: int) -> None:
     if targets.device != words.device:
         raise ValueError(
             f"targets are on {targets.device}, words on {words.device}")
+    rk_params(m, base)
+
+
+def _window_hashes(words, n_lim: int, m: int, base: int):
+    """(int64 window hashes of the region, bool[N] positions <= n_lim)."""
+    text = words.view(torch.uint8)
+    powers = torch.from_numpy(
+        tables.rk_constants(m, base)["powers"].astype("int64")).to(text.device)
+    h = rk_ops.rk_window_hashes(text, powers)
+    return h, torch.arange(text.numel(), device=text.device) <= n_lim
 
 
 def rk_candidate_bsums_plain(words, n_lim: int, targets, m: int,
                              base: int) -> torch.Tensor:
     """Plain PyTorch version of ``rk_candidate_bsums`` (same contract): the
     window hashes by direct sum (``ops/rabin_karp.rk_window_hashes``)."""
-    text = words.view(torch.uint8)
-    powers = torch.from_numpy(
-        tables.rk_constants(m, base)["powers"].astype("int64")).to(text.device)
-    h = rk_ops.rk_window_hashes(text, powers)
+    h, valid = _window_hashes(words, n_lim, m, base)
     cand = torch.zeros_like(h, dtype=torch.bool)
     for p in range(targets.numel()):
         cand |= h == targets[p]
-    cand &= torch.arange(text.numel(), device=text.device) <= n_lim
+    cand &= valid
     return cand.view(-1, swar.BLOCK_BYTES).sum(1, dtype=torch.int32)
+
+
+def rk_candidate_pmask_plain(words, n_lim: int, targets, m: int,
+                             base: int) -> torch.Tensor:
+    """Plain PyTorch version of ``rk_candidate_pmask`` (same contract)."""
+    h, valid = _window_hashes(words, n_lim, m, base)
+    pm = torch.zeros(h.numel() // swar.BLOCK_BYTES, dtype=torch.int32,
+                     device=h.device)
+    for p in range(targets.numel()):
+        hit = ((h == targets[p]) & valid).view(-1, swar.BLOCK_BYTES).any(1)
+        pm |= hit.to(torch.int32) << p
+    return pm
+
+
+def _launch(fn: str, words, n_lim: int, targets, m: int, base: int):
+    """Run C entry ``fn`` (K5 or K6) over the region; int32[Nw/128]."""
+    B, Bm = rk_params(m, base)
+    # uint32 bits as int32: values >= 2**31 move down by 2**32.
+    tgt = (targets - ((targets >> 31) << 32)).to(torch.int32).contiguous()
+    bs = torch.empty(words.numel() // swar.BLOCK_WORDS, dtype=torch.int32,
+                     device=words.device)
+    cuda_build.launch(cuda_build.load("rk_roll", _SIGNATURES), fn,
+                      words.device, words.data_ptr(), 4 * words.numel(),
+                      int(n_lim), m, B, Bm, tgt.data_ptr(), tgt.numel(),
+                      bs.data_ptr())
+    return bs
 
 
 def rk_candidate_bsums(words: torch.Tensor, n_lim: int, targets: torch.Tensor,
@@ -90,20 +126,34 @@ def rk_candidate_bsums(words: torch.Tensor, n_lim: int, targets: torch.Tensor,
     hash equals any target, a superset of the matches.  Replaces the
     reference's ``_kernel`` with ``emit='bsums'`` (``rk_candidate_bsums``);
     csrc/rk_roll.cu notes what bounds it."""
-    _check(words, targets, m)
-    B, Bm = rk_params(m, base)
+    _check(words, targets, m, base)
     if words.device.type == "cpu":
         return rk_candidate_bsums_plain(words, n_lim, targets, m, base)
-    # uint32 bits as int32: values >= 2**31 move down by 2**32.
-    tgt = (targets - ((targets >> 31) << 32)).to(torch.int32).contiguous()
-    bs = torch.empty(words.numel() // swar.BLOCK_WORDS, dtype=torch.int32,
-                     device=words.device)
-    cuda_build.launch(cuda_build.load("rk_roll", _SIGNATURES),
-                      "tpm_rk_candidate_bsums", words.device,
-                      words.data_ptr(), 4 * words.numel(), int(n_lim), m, B,
-                      Bm, tgt.data_ptr(), tgt.numel(), bs.data_ptr())
+    bs = _launch("tpm_rk_candidate_bsums", words, n_lim, targets, m, base)
     rk_candidate_bsums.launches += 1
     return bs
 
 
+def rk_candidate_pmask(words: torch.Tensor, n_lim: int, targets: torch.Tensor,
+                       m: int, base: int) -> torch.Tensor:
+    """K6, the multi-pattern screen: ``rk_candidate_bsums``'s arguments
+    with 1 <= k <= 31 targets.  Returns int32[Nw/128] in which bit p of
+    block b is set exactly when some start s in b with s <= n_lim hashes to
+    ``targets[p]``: per pattern, a superset of the block's matches.
+    Replaces the reference's ``_kernel`` with ``emit='pmask'`` and its
+    fold ``shift_and._end_to_start_pmask``, whose bits are a superset of
+    these (csrc/rk_roll.cu)."""
+    _check(words, targets, m, base)
+    if targets.numel() > MAX_PMASK_PATTERNS:
+        raise ValueError(
+            f"at most {MAX_PMASK_PATTERNS} targets fit a pattern mask, got "
+            f"{targets.numel()}")
+    if words.device.type == "cpu":
+        return rk_candidate_pmask_plain(words, n_lim, targets, m, base)
+    pm = _launch("tpm_rk_candidate_pmask", words, n_lim, targets, m, base)
+    rk_candidate_pmask.launches += 1
+    return pm
+
+
 rk_candidate_bsums.launches = 0
+rk_candidate_pmask.launches = 0

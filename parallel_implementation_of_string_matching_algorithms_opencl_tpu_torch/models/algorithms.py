@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..kernels import rk_roll, shift_and, swar
+from ..ops import emit
 from ..ops import kmp as kmp_ops
 from ..ops import naive as naive_ops
 from ..ops import rabin_karp as rk_ops
@@ -89,7 +90,8 @@ class _RegionMatcher(Matcher):
             bs, reconstruct.full_words2d(words), self.dev_tables["swar_p"],
             self.swar_m, self.m, limit, self.config.capacity,
         )
-        return self._merge_tail(c1, o1, v1, cut, n, tail_mask)
+        return emit.merge_tail(c1, o1, v1, cut, n, self.m,
+                               self.config.capacity, tail_mask)
 
 
 @register_matcher

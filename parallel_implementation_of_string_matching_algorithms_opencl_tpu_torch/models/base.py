@@ -74,6 +74,22 @@ class MatchResult:
         return [int(x) for x in self.offsets]
 
 
+def make_result(algo: str, pattern: bytes, n: int, count: int,
+                offsets: torch.Tensor, overflow: bool) -> MatchResult:
+    """``MatchResult`` from a ``run`` triple: the offsets' valid prefix on
+    the host, and overflow also when that prefix is short of the count."""
+    offs = valid_prefix(offsets.cpu().numpy())
+    return MatchResult(algo=algo, pattern=pattern, n=n, count=count,
+                       offsets=offs, overflow=bool(overflow) or len(offs) < count)
+
+
+def pad_target(n: int, config: MatchConfig, tile: int) -> int:
+    """Pad-to multiple for a text of n bytes: always word-row aligned (the
+    (N/4096, 1024) int32 view must exist), ``tile``-aligned once the text
+    fills a kernel tile.  Shorter texts take the plain mask route."""
+    return int(np.lcm(config.pad_multiple, tile if n >= tile else 4096))
+
+
 class Matcher:
     """Base matcher: subclass with ``name``, ``_precompute`` and ``_mask``."""
 
@@ -118,21 +134,6 @@ class Matcher:
         ``_mask`` route."""
         return None
 
-    # -- shared kernel-region + tail merge for _direct implementations ----
-
-    def _merge_tail(self, c1, o1, v1, cut: int, n: int, tail_mask):
-        """Merge an extracted kernel region [0, cut) with a bool tail mask
-        over [cut, N)."""
-        if tail_mask.shape[0] == 0:
-            return c1, o1, v1
-        tail_valid = emit.valid_start_mask(tail_mask, n - cut, self.m)
-        c2, o2, v2 = emit.mask_to_matches_sorted(
-            tail_valid, min(self.config.capacity, tail_mask.shape[0])
-        )
-        return emit.merge_region_matches(
-            c1, o1, v1, c2, o2, v2, self.config.capacity, cut
-        )
-
     # -- execution ----------------------------------------------------------
 
     def run(self, text: torch.Tensor, n: int):
@@ -149,16 +150,8 @@ class Matcher:
         arr = as_byte_array(data)
         n = len(arr)
         padded = pad_to_multiple(arr, self._pad_target(n))
-        count, offsets, overflow = self.run(to_device(padded, self.device), n)
-        offs = valid_prefix(offsets.cpu().numpy())
-        return MatchResult(
-            algo=self.name,
-            pattern=self.pattern_bytes,
-            n=n,
-            count=count,
-            offsets=offs,
-            overflow=bool(overflow) or len(offs) < count,
-        )
+        return make_result(self.name, self.pattern_bytes, n,
+                           *self.run(to_device(padded, self.device), n))
 
     def match_all(self, data) -> MatchResult:
         """Like ``match`` but returns EVERY offset even when the count
@@ -221,8 +214,6 @@ class Matcher:
         return 128 * min(config.pallas_chunk_bytes, 4096)
 
     def _pad_target(self, n: int) -> int:
-        """Pad-to multiple for ``match``: always word-row aligned (the
-        (N/4096, 1024) int32 view must exist), tile-aligned once the text
-        fills a tile.  Shorter texts take the ``_mask`` route."""
-        tile = self._tile_bytes(self.config)
-        return int(np.lcm(self.config.pad_multiple, tile if n >= tile else 4096))
+        """Pad-to multiple for ``match`` (``pad_target`` at this matcher's
+        kernel tile)."""
+        return pad_target(n, self.config, self._tile_bytes(self.config))

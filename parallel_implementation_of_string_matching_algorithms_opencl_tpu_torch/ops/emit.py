@@ -35,3 +35,16 @@ def merge_region_matches(c1, o1, v1, c2, o2, v2, capacity: int, offset2: int):
     count = c1 + c2
     out = torch.cat([o1, o2 + offset2])[:capacity]
     return count, out, v1 or v2 or count > capacity
+
+
+def merge_tail(c1, o1, v1, cut: int, n: int, m: int, capacity: int,
+               tail_mask: torch.Tensor):
+    """Merge an extracted kernel region [0, cut) with the bool start mask
+    ``tail_mask`` over the tail [cut, N) of a text of logical length n."""
+    if tail_mask.shape[0] == 0:
+        return c1, o1, v1
+    tail_valid = valid_start_mask(tail_mask, n - cut, m)
+    c2, o2, v2 = mask_to_matches_sorted(
+        tail_valid, min(capacity, tail_mask.shape[0])
+    )
+    return merge_region_matches(c1, o1, v1, c2, o2, v2, capacity, cut)

@@ -3,7 +3,8 @@
 
 Serves the region after the kernel's cut, texts shorter than one kernel
 tile, m = 1 and patterns longer than ``kernels.rk_roll.MAX_RK_PATTERN``,
-and the plain version of the rolling-hash kernel.
+for one pattern and for k equal-length patterns, and the plain versions of
+the rolling-hash kernels.
 
 Hashes are uint32 values mod 2**32 (``ops/tables.rk_hash``).  PyTorch's
 uint32 support is partial, so they are held in int64: every term
@@ -70,3 +71,18 @@ def rk_start_mask(text: torch.Tensor, pattern: torch.Tensor,
     ``pattern_hash`` is the pattern's uint32 hash as an int or a tensor."""
     cand = rk_window_hashes(text, powers) == pattern_hash
     return verify_candidates(text, pattern, cand, verify_capacity)
+
+
+def rk_multi_start_masks(text: torch.Tensor, patterns: torch.Tensor,
+                         powers: torch.Tensor, pattern_hashes: torch.Tensor,
+                         verify_capacity: int = DEFAULT_VERIFY_CAPACITY):
+    """Exact start masks of k equal-length patterns, bool[k, N]: the window
+    hashes are computed once, then each pattern takes a compare and its own
+    candidate verification.  ``patterns``: uint8[k, m]; ``pattern_hashes``:
+    int64[k] uint32 values."""
+    h = rk_window_hashes(text, powers)
+    return torch.stack([
+        verify_candidates(text, patterns[p], h == pattern_hashes[p],
+                          verify_capacity)
+        for p in range(patterns.shape[0])
+    ])

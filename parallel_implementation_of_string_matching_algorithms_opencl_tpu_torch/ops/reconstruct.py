@@ -1,6 +1,7 @@
 """Block sums to (count, offsets, overflow) over the kernel region
 (counterpart of the JAX ``ops/reconstruct.py``: ``full_words2d``,
-``_verify_chunks``, ``extract_region``).
+``_verify_chunks``, ``extract_region``, and the multi-pattern
+``extract_region_multi_pselect`` / ``extract_region_multi``).
 
 A scan kernel's block sums mark which 512-byte blocks may hold matches:
 exact counts from the naive verify (and the KMP automaton for m <= 32), a
@@ -13,7 +14,10 @@ kernel (K2, ``swar.naive_nib``) replaces the gather.
 
 Offsets are always the true ascending first ``capacity`` matches: the
 reference's tier switch, T-slot extraction and give-up path are TPU
-machinery with no counterpart here.
+machinery with no counterpart here.  Several patterns are extracted one
+after another, each exact on its own with its own ``capacity``: the
+reference's shared union gather, its two-pattern side plane and its
+fallback from pattern masks to block sums have no counterpart either.
 """
 
 from __future__ import annotations
@@ -88,6 +92,22 @@ def extract_region(bs, x2d, P, M, m: int, limit: int, capacity: int):
     pos = extract.nib_positions(nib, gids * 4096)
     count = pos.numel()
     return count, pos[:capacity], count > capacity
+
+
+def extract_region_multi(bs, x2d, Ps, M, m: int, limit: int, capacity: int,
+                         pmask: bool) -> list:
+    """Per pattern, ``extract_region``'s (count, offsets, overflow).
+
+    ``Ps``: int32[k, 4, nw], the k patterns' SWAR words.  ``bs``: with
+    ``pmask``, per-block pattern-hit masks (K6, bit p for pattern p), so
+    pattern p verifies only the chunks of the blocks flagged for it;
+    otherwise candidate counts over all k targets (K5), which every pattern
+    verifies."""
+    return [
+        extract_region((bs >> p) & 1 if pmask else bs, x2d, Ps[p], M, m,
+                       limit, capacity)
+        for p in range(Ps.shape[0])
+    ]
 
 
 def _dense(nb: int, x2d, P, M, limit: int, capacity: int):

@@ -1,7 +1,7 @@
 """Match configuration (counterpart of the JAX package's ``utils/config.py``).
 
-Only the fields the single-pattern matchers (naive, Rabin-Karp, KMP,
-Boyer-Moore) read are carried.  The JAX-only switches (``use_pallas``,
+Only the fields the matchers (naive, Rabin-Karp, KMP, Boyer-Moore and
+multi-pattern Rabin-Karp) read are carried.  The JAX-only switches (``use_pallas``,
 ``interpret``, the AOT cache) have no meaning here: on a CUDA tensor the
 kernels always run, on a CPU tensor their plain PyTorch versions do.  Modes of the reference that this package does not
 implement yet raise ``NotImplementedError`` at construction.
@@ -20,12 +20,19 @@ PORTED_PROBES = ("table_gs", "table", "static")
 # pattern[:32] as a candidate screen, 'ripple' the K-word automaton of the
 # whole pattern (m <= 256).
 KMP_LONG = ("screen", "ripple")
+# Multi-pattern candidate extraction: 'pselect' screens with per-block
+# pattern-hit masks (K6, k <= 31) and verifies each block only against the
+# patterns flagged in it; 'blocks' screens with candidate counts over all
+# k targets (K5) and verifies every candidate block against every pattern.
+# k > 31 always takes 'blocks'.
+MULTI_GATHER = ("pselect", "blocks")
 # Reference modes not ported yet (ROADMAP.md, Queue 2).
 UNPORTED = {
     "bm_variant": ("cursor",),
     "bm_screen": ("fused",),
     "emission": ("nib",),
     "bm_probes": ("table_dyn", "table_gs1"),
+    "multi_gather": ("groups",),
 }
 
 
@@ -66,6 +73,8 @@ class MatchConfig:
     emission: str = "sparse"
     # Rabin-Karp base (an odd uint32); None = ops.tables.RK_BASE.
     rk_base: int | None = None
+    # Multi-pattern candidate extraction (see MULTI_GATHER).
+    multi_gather: str = "pselect"
 
     def __post_init__(self):
         if self.pad_multiple < 4 or self.pad_multiple % 4:
@@ -99,6 +108,8 @@ class MatchConfig:
                 )
         if self.bm_probes not in PORTED_PROBES:
             raise ValueError(f"unknown bm_probes {self.bm_probes!r}")
+        if self.multi_gather not in MULTI_GATHER:
+            raise ValueError(f"unknown multi_gather {self.multi_gather!r}")
         for field, ok in (("bm_variant", "filtered"), ("bm_screen", "cand"),
                           ("emission", "sparse")):
             if getattr(self, field) != ok:

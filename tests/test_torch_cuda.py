@@ -1,5 +1,6 @@
-"""PyTorch port on the card: the CUDA kernels (K1-K5) against their plain
-versions and ``match()`` of every algorithm against the oracle.  Every test here is marked ``cuda`` and
+"""PyTorch port on the card: the CUDA kernels (K1-K6) against their plain
+versions and ``match()`` of every algorithm, and of pattern lists, against
+the oracle.  Every test here is marked ``cuda`` and
 skips without a GPU.
 
 This file imports neither jax nor the JAX package, so it also runs on a
@@ -16,6 +17,7 @@ import torch
 from conformance.oracle import find_all
 from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch import (
     MatchConfig,
+    RabinKarpMultiMatcher,
     match,
 )
 from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.kernels import (
@@ -202,3 +204,54 @@ def test_match_end_to_end_per_algorithm(algo, cuda_device):
         assert kernel.launches == before + 1
     r = match(text, b"the ", algo=algo, config=cfg, drain=True)
     assert r.offsets_list() == find_all(text, b"the ")
+
+
+@pytest.mark.parametrize("m", [2, 16, 509])
+@pytest.mark.parametrize("k", [1, 8, 31])
+def test_pmask_kernel_bit_exact(k, m, cuda_device):
+    """K6 equals its plain version (tolerance 0) for k patterns drawn from
+    the text (bit k-1 included), one launch per call; its mask is nonzero
+    exactly where K5's count over the same targets is."""
+    n = 3 * TILE + 1234
+    text = gen_english(n, seed=1000 + k + m)
+    pats = [text[7919 * i + 11 : 7919 * i + 11 + m] for i in range(k)]
+    words, limit, _, _ = _region(n, pats[-1], cuda_device)
+    base = int(tables.RK_BASE)
+    c = tables.rk_constants(m, base)
+    tgt = torch.tensor([int(tables.rk_hash(_u8(p), c)) for p in pats],
+                       device=cuda_device)
+    before = rk_roll.rk_candidate_pmask.launches
+    pm = rk_roll.rk_candidate_pmask(words, limit, tgt, m, base)
+    torch.cuda.synchronize()
+    assert rk_roll.rk_candidate_pmask.launches == before + 1
+    assert torch.equal(pm, rk_roll.rk_candidate_pmask_plain(words, limit, tgt, m, base))
+    bs = rk_roll.rk_candidate_bsums(words, limit, tgt, m, base)
+    assert torch.equal(pm != 0, bs != 0)
+    assert int(((pm >> (k - 1)) & 1).sum()) >= 4  # the planted last pattern
+    with pytest.raises(ValueError, match="at most 31"):
+        rk_roll.rk_candidate_pmask(words, limit, tgt.repeat(32)[:32], m, base)
+
+
+@pytest.mark.parametrize("mode", ["pselect", "blocks", "k64"])
+def test_multi_match_end_to_end(mode, cuda_device):
+    """match() of a pattern list on the card, 4 MiB: every result exact
+    against the oracle; pselect launches K6 once, blocks and k = 64 launch
+    K5 once; duplicates and absent patterns included."""
+    text = bytes(gen_english(4 << 20, seed=23))
+    k = 64 if mode == "k64" else 8
+    offs = [(i * 524287) % (len(text) - 16) for i in range(k - 2)]
+    pats = [text[o : o + 16] for o in offs]
+    pats += [pats[0], b"\x00 never here! \xfe\xff"]  # a duplicate, an absent one
+    cfg = MatchConfig(capacity=4096, multi_gather="blocks" if mode == "blocks"
+                      else "pselect")
+    k5, k6 = rk_roll.rk_candidate_bsums.launches, rk_roll.rk_candidate_pmask.launches
+    rs = match(text, pats, algo="rabin_karp", config=cfg)
+    for p, r in zip(pats, rs):
+        want = find_all(text, p)
+        assert r.algo == "rabin_karp_multi"
+        assert r.count == len(want) and r.offsets_list() == want[:4096], p
+    pselect = mode == "pselect"
+    assert rk_roll.rk_candidate_pmask.launches == k6 + pselect
+    assert rk_roll.rk_candidate_bsums.launches == k5 + (not pselect)
+    mm = RabinKarpMultiMatcher(pats, cfg, device=cuda_device)
+    assert [c for c, _, _ in mm.run(mm.patterns_dev.new_zeros(TILE * 4), 0)] == [0] * k

@@ -1,5 +1,5 @@
 """PyTorch port: import isolation from JAX, the explicit device, the
-algorithms, and the modes that are not ported yet."""
+algorithms, pattern lists, and the modes that are not ported yet."""
 
 import os
 import subprocess
@@ -59,10 +59,16 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 
 def test_pattern_list_and_unported_algorithms_raise():
-    """A list of patterns (the multi-pattern slice) still raises; all four
+    """A list of patterns runs (one result per pattern, in input order);
+    ``multi_gather='groups'`` is not ported and raises; all four
     algorithms and their aliases run."""
+    rs = match(b"abcab", [b"ab", "ca", b"b"], algo="rk", device="cpu")
+    assert [r.offsets_list() for r in rs] == [[0, 3], [2], [1, 4]]
+    assert [r.algo for r in rs] == ["rabin_karp_multi", "rabin_karp_multi",
+                                    "rabin_karp"]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        match(b"abc", [b"a", b"b"], device="cpu")
+        match(b"abc", [b"a", b"b"], algo="rk", device="cpu",
+              multi_gather="groups")
     for algo in ("naive", "kmp", "rabin_karp", "rk", "brute", "bm",
                  "boyer_moore"):
         assert match(b"abcab", b"ab", algo=algo, device="cpu").offsets_list() == [0, 3]
@@ -77,6 +83,7 @@ def test_pattern_list_and_unported_algorithms_raise():
 @pytest.mark.parametrize("field,value", [
     ("bm_variant", "cursor"), ("bm_screen", "fused"), ("emission", "nib"),
     ("bm_probes", "table_dyn"), ("bm_probes", "table_gs1"),
+    ("multi_gather", "groups"),
 ])
 def test_unported_modes_raise(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

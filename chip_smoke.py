@@ -27,22 +27,41 @@ source, in parallel), then:
     ``multi_gather='blocks'`` and k=64 (both on K5), a mixed-length
     Rabin-Karp list, a Boyer-Moore list and a drained list, and a dense
     m=2 list at 64 MiB that takes the K2 rescan;
+(a') holds the kernels of the opt-in routes bit for bit against their plain
+    versions and against the ported kernel with the same answer, at 256 MiB
+    on English, DNA and UTF-8 and on the 64 MiB dense text: K7/K8
+    ``screened_nib`` and ``screened_bsums`` (the 'table_gs' and the
+    'table_dyn' probes) against K2/K3, K10a ``kmp_nib`` (m = the corpus
+    pattern, 64 and 256: K = 1, 2, 8) against K2 and, for m <= 32, K4, and
+    K10b ``rk_candidate_nib`` (k=1 at the corpus pattern and m=509, k=8)
+    against K5, each true start among its candidates;
+(g) drives the opt-in routes through ``match()``: every algorithm with
+    ``emission='nib'`` on the three 256 MiB corpora (oracle), KMP at m=64
+    and 256 and Rabin-Karp at m=509, Boyer-Moore with ``bm_screen='fused'``,
+    ``bm_probes='table_dyn'`` and ``'table_gs1'`` under sparse emission,
+    the dense text under 'nib' for every algorithm and drained, and
+    BASELINE config 2 at 1 GB under 'nib' (numpy reference);
 (e) times every kernel and its plain version with CUDA events, ``match``
     per algorithm on a device-resident text (host clock, and device time
-    and idle share from torch.profiler) and from host bytes, the KMP
-    dense-DFA tail at m=509, K6 at 256 MiB and 1 GB, and config 2's
-    ``RabinKarpMultiMatcher.run`` on the device-resident 1 GB text and
-    from host bytes.
+    and idle share from torch.profiler), sparse and 'nib' in alternating
+    passes, and from host bytes, the KMP dense-DFA tail at m=509, K6 and
+    K10b at 256 MiB and 1 GB, and config 2's ``RabinKarpMultiMatcher.run``
+    on the device-resident 1 GB text (sparse and 'nib') and from host
+    bytes.
 
-The launch counters are zeroed before (b) and read after (f): each kernel
-must have been launched by that main-path run.  Prints the card's name and
-power limit, one JSON line describing the kernels, and as the last line
+The launch counters are zeroed before (b) and read after (f), and zeroed
+again before (g) and read after it: each kernel must have been launched by
+the main-path run that exercises it.  Prints the card's name and power
+limit, one JSON line describing the kernels (with each one's bound: the
+larger of its bytes over the card's 3.35 TB/s and its integer operations
+over the INT32 instruction rate), and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises (exit code != 0);
 without CUDA the script exits with code 2 before printing any result.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import subprocess
@@ -54,6 +73,18 @@ REF = "parallel_implementation_of_string_matching_algorithms_opencl_tpu"
 MIB = 1 << 20
 CONFIG2_BYTES = 1_000_000_000  # BASELINE config 2's 1 GB corpus
 ALGOS = ("boyer_moore", "naive", "kmp", "rabin_karp")
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+# INT32 instruction rate: the 67 TFLOP/s fp32 peak counts an FMA as two
+# operations on 128 lanes per SM; Hopper runs INT32 on 64 lanes per SM.
+INT32_OPS_PER_S = 67e12 / 4
+
+
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """(ms, what bounds it): the least time for moving ``n_bytes`` through
+    device memory and issuing ``n_ops`` integer operations."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def nvidia_smi() -> str:
@@ -156,7 +187,7 @@ def main() -> int:
 
     import numpy as np
 
-    from conformance.oracle import find_all
+    from conformance.oracle import find_all as _find_all
     from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch import (
         MatchConfig,
         RabinKarpMultiMatcher,
@@ -193,6 +224,7 @@ def main() -> int:
         pad_to_multiple,
     )
 
+    find_all = functools.lru_cache(maxsize=None)(_find_all)
     matchers = {"boyer_moore": BoyerMooreMatcher, "naive": NaiveMatcher,
                 "kmp": KMPMatcher, "rabin_karp": RabinKarpMatcher}
     dev = torch.device("cuda")
@@ -249,7 +281,8 @@ def main() -> int:
 
     # -- (a) kernels vs plain versions on the card ---------------------------
     names = ("screen_cand_bsums", "naive_nib", "naive_bsums", "kmp_bsums",
-             "rk_candidate_bsums", "rk_candidate_pmask")
+             "rk_candidate_bsums", "rk_candidate_pmask", "screened_nib",
+             "screened_bsums", "kmp_nib", "rk_candidate_nib")
     errs = dict.fromkeys(names, 0)
     lines = []
 
@@ -261,13 +294,14 @@ def main() -> int:
         errs[kernel] = max(errs[kernel], e)
         lines.append(f"{kernel} {what}: max_abs_err {e}")
         assert all(torch.equal(g, w) for g, w in zip(got, want)), (
-            f"{kernel} disagrees with its plain version on {what}")
+            f"{kernel} disagrees on {what}")
 
-    for name, (text, pat) in [*corpora.items(), ("dense", (dense_text, dense_pat))]:
+    all_corpora = [*corpora.items(), ("dense", (dense_text, dense_pat))]
+    cand_words = {}
+    for name, (text, pat) in all_corpora:
         bm = BoyerMooreMatcher(pat, cfg, device=dev)
         n = len(text)
-        padded = (on_card(name, text) if name != "dense" else to_device(
-            pad_to_multiple(np.frombuffer(text, np.uint8), 2 * MIB), dev))
+        padded = on_card(name, text)
         Nk, cut = swar.kernel_region(padded.numel(), bm.m, cfg.pallas_chunk_bytes)
         limit = min(n - bm.m, cut - 1)
         region = padded.view(torch.int32)[: Nk // 4]
@@ -276,11 +310,26 @@ def main() -> int:
         bs1 = swar.screen_cand_bsums(region, limit, P, M, probes)
         hold("screen_cand_bsums", what, bs1,
              swar.screen_cand_bsums_plain(region, limit, P, M, probes))
-        hold("naive_nib", what, swar.naive_nib(region, limit, P, M),
-             swar.naive_nib_plain(region, limit, P, M))
+        k2 = swar.naive_nib(region, limit, P, M)
+        hold("naive_nib", what, k2, swar.naive_nib_plain(region, limit, P, M))
         bs3 = swar.naive_bsums(region, limit, P, M)
         hold("naive_bsums", what, bs3, swar.naive_bsums_plain(region, limit, P, M))
+        cand_words[name] = int(bs1.sum())
         lines.append(f"  {name}: candidates {int(bs1.sum())}, matches {int(bs3.sum())}")
+        # (a') K7 with the 'table_gs' probes, K8 with 'table_dyn''s.
+        u = np.frombuffer(pat, np.uint8)
+        for tag, table in (("K7", swar.probe_table(u, use_gs=True)),
+                           ("K8", swar.probe_table(u))):
+            lay = swar.static_probes_from_table(table)
+            got = swar.screened_nib(region, limit, P, M, lay)
+            hold("screened_nib", f"{what} {tag}", got,
+                 swar.screened_nib_plain(region, limit, P, M, lay))
+            hold("screened_nib", f"{what} {tag} vs K2", got, k2)
+            got = swar.screened_bsums(region, limit, P, M, lay)
+            hold("screened_bsums", f"{what} {tag}", got,
+                 swar.screened_bsums_plain(region, limit, P, M, lay))
+            hold("screened_bsums", f"{what} {tag} vs K3", got, bs3)
+        del k2
 
     for name in ("english", "dna"):
         text, pat16 = corpora[name]
@@ -332,6 +381,52 @@ def main() -> int:
                 hold("rk_candidate_bsums", f"{name} {what} (blocks route)", bs,
                      rk_roll.rk_candidate_bsums_plain(region, lim, tgt, m, base))
                 lines.append(f"  {name} {what}: hash candidates {int(bs.sum())}")
+    # (a') K10a and K10b on every corpus, against their plain versions and
+    # the ported kernels with the same answer.
+    base = int(tables.RK_BASE)
+    for name, (text, pat) in all_corpora:
+        n = len(text)
+        padded = on_card(name, text)
+        for p in (pat, text[123457 : 123457 + 64], text[123457 : 123457 + 256]):
+            m = len(p)
+            Nk, cut = shift_and.kernel_region(padded.numel(), m, cfg.pallas_chunk_bytes)
+            region = padded.view(torch.int32)[: Nk // 4]
+            lim = min(n - m, cut - 1)
+            u = np.frombuffer(p, np.uint8)
+            bt = torch.from_numpy(shift_and.b_table(u)).to(dev)
+            what = f"{name} m={m} K={bt.shape[0]}"
+            got = shift_and.kmp_nib(region, lim, bt, m)
+            hold("kmp_nib", what, got, shift_and.kmp_nib_plain(region, lim, bt, m))
+            Pp, Mp = (torch.from_numpy(a).to(dev) for a in swar.pattern_words(u))
+            hold("kmp_nib", f"{what} vs K2", got, swar.naive_nib(region, lim, Pp, Mp))
+            if m <= 32:
+                hold("kmp_nib", f"{what} vs K4", got[1],
+                     shift_and.kmp_bsums(region, lim, bt, m))
+            lines.append(f"  {what}: starts {int(got[1].sum())}")
+        for p_what, pats in ((f"k=1 m={len(pat)}", [pat]),
+                             ("k=1 m=509", [text[5000:5509]]),
+                             ("k=8 m=16", spread(text, 8, 16))):
+            m = len(pats[0])
+            Nk, cut = shift_and.kernel_region(padded.numel(), m, cfg.pallas_chunk_bytes)
+            region = padded.view(torch.int32)[: Nk // 4]
+            lim = min(n - m, cut - 1)
+            c = tables.rk_constants(m, base)
+            tgt = torch.tensor([int(tables.rk_hash(np.frombuffer(q, np.uint8), c))
+                                for q in pats], device=dev)
+            what = f"{name} {p_what}"
+            nib, bs = got = rk_roll.rk_candidate_nib(region, lim, tgt, m, base)
+            hold("rk_candidate_nib", what, got,
+                 rk_roll.rk_candidate_nib_plain(region, lim, tgt, m, base))
+            hold("rk_candidate_nib", f"{what} bs vs K5", bs,
+                 rk_roll.rk_candidate_bsums(region, lim, tgt, m, base))
+            for q in pats:
+                Pq, Mq = (torch.from_numpy(a).to(dev)
+                          for a in swar.pattern_words(np.frombuffer(q, np.uint8)))
+                exact = swar.naive_nib(region, lim, Pq, Mq)[0]
+                assert torch.equal(nib & exact, exact), (
+                    f"rk_candidate_nib misses a true start on {what}")
+            lines.append(f"  {what}: hash candidates {int(bs.sum())}, every true "
+                         f"start among them")
     print("(a) kernels bit-exact against their plain versions (tolerance 0):")
     for s in lines:
         print(f"  {s}")
@@ -341,30 +436,40 @@ def main() -> int:
                "naive_nib": swar.naive_nib, "naive_bsums": swar.naive_bsums,
                "kmp_bsums": shift_and.kmp_bsums,
                "rk_candidate_bsums": rk_roll.rk_candidate_bsums,
-               "rk_candidate_pmask": rk_roll.rk_candidate_pmask}
+               "rk_candidate_pmask": rk_roll.rk_candidate_pmask,
+               "screened_nib": swar.screened_nib,
+               "screened_bsums": swar.screened_bsums,
+               "kmp_nib": shift_and.kmp_nib,
+               "rk_candidate_nib": rk_roll.rk_candidate_nib}
+    opt_in = ("screened_nib", "screened_bsums", "kmp_nib", "rk_candidate_nib")
     scan_kernel = {"boyer_moore": swar.screen_cand_bsums,
                    "naive": swar.naive_bsums, "kmp": shift_and.kmp_bsums,
                    "rabin_karp": rk_roll.rk_candidate_bsums}
     for k in kernels.values():
         k.launches = 0
 
-    def drive(tag: str, text: bytes, pat: bytes, algo: str, dense: bool = False):
-        before = scan_kernel[algo].launches
+    def drive(tag: str, text: bytes, pat: bytes, algo: str, dense: bool = False,
+              config=cfg, kernel=None, phase: str = "(b)"):
+        """``match(text, pat)`` (device="cuda") against the oracle, or the
+        numpy reference when ``dense``; ``kernel`` (default: the
+        algorithm's sparse scan) must have been launched."""
+        kernel = kernel or scan_kernel[algo]
+        before = kernel.launches
         t0 = time.perf_counter()
-        r = match(text, pat, algo=algo)  # the defaults, device="cuda"
+        r = match(text, pat, algo=algo, config=config)
         dt = time.perf_counter() - t0
         if dense:
             want = np_find_all(np.frombuffer(text, np.uint8), pat)
-            cap = cfg.capacity
+            cap = config.capacity
             assert r.count == len(want) and r.overflow == (len(want) > cap), (
-                f"(b) {tag}: count {r.count} vs {len(want)}")
-            assert np.array_equal(r.offsets, want[:cap]), f"(b) {tag}: offsets"
+                f"{phase} {tag}: count {r.count} vs {len(want)}")
+            assert np.array_equal(r.offsets, want[:cap]), f"{phase} {tag}: offsets"
         else:
             want = find_all(text, pat)
             assert (r.count == len(want) and r.offsets_list() == want
-                    and not r.overflow), f"(b) {tag}: count {r.count} vs {len(want)}"
-        assert scan_kernel[algo].launches > before, f"(b) {tag}: kernel not launched"
-        print(f"(b) match {tag} algo={algo} m={len(pat)}: count {r.count} == "
+                    and not r.overflow), f"{phase} {tag}: count {r.count} vs {len(want)}"
+        assert kernel.launches > before, f"{phase} {tag}: kernel not launched"
+        print(f"{phase} match {tag} algo={algo} m={len(pat)}: count {r.count} == "
               f"{'numpy reference' if dense else 'oracle'}, offsets equal "
               f"({dt:.2f} s from host bytes)")
 
@@ -466,10 +571,64 @@ def main() -> int:
     assert rk_roll.rk_candidate_pmask.launches > k6_f and \
         rk_roll.rk_candidate_bsums.launches > k5_f, "(f) K5/K6 not launched"
 
-    launches = {k: f.launches for k, f in kernels.items()}
+    launches = {k: f.launches for k, f in kernels.items() if k not in opt_in}
     for k, v in launches.items():
         assert v > 0, f"kernel {k} was not launched by the main path"
-    print(f"main-path launches: {launches}")
+    print(f"main-path launches (b)-(f): {launches}")
+
+    # -- (g) the opt-in routes, with the launch counters zeroed -------------
+    for k in kernels.values():
+        k.launches = 0
+    nib_cfg = cfg.replace(emission="nib")
+    nib_kernel = {"boyer_moore": swar.screened_nib, "naive": swar.naive_nib,
+                  "kmp": shift_and.kmp_nib, "rabin_karp": rk_roll.rk_candidate_nib}
+    for algo in ALGOS:
+        for name, (text, pat) in corpora.items():
+            drive(f"{name} nib", text, pat, algo, config=nib_cfg,
+                  kernel=nib_kernel[algo], phase="(g)")
+    for m in (64, 256):
+        drive("english nib", eng, long_pats["english"][m], "kmp", config=nib_cfg,
+              kernel=shift_and.kmp_nib, phase="(g)")
+    drive("english nib", eng, long_pats["english"][509], "rabin_karp",
+          config=nib_cfg, kernel=rk_roll.rk_candidate_nib, phase="(g)")
+    for kw in ({"bm_screen": "fused"}, {"bm_probes": "table_dyn"},
+               {"bm_probes": "table_gs1"}):
+        kernel = (swar.screen_cand_bsums if kw.get("bm_probes") == "table_gs1"
+                  else swar.screened_bsums)
+        for name, (text, pat) in corpora.items():
+            drive(f"{name} {kw}", text, pat, "boyer_moore", config=cfg.replace(**kw),
+                  kernel=kernel, phase="(g)")
+    for algo in ALGOS:
+        drive("dense 64 MiB nib", dense_text, dense_pat, algo, dense=True,
+              config=nib_cfg, kernel=nib_kernel[algo], phase="(g)")
+    drain_text = dense_text[: 16 * MIB]
+    before = swar.screened_nib.launches
+    r = match(drain_text, dense_pat, config=nib_cfg, drain=True)
+    want = np_find_all(np.frombuffer(drain_text, np.uint8), dense_pat)
+    assert len(want) > nib_cfg.capacity, "(g) drain case does not overflow"
+    assert r.count == len(want) and not r.overflow
+    assert np.array_equal(r.offsets, want), "(g) drained offsets differ"
+    assert swar.screened_nib.launches > before
+    print(f"(g) drain under nib, dense m=2 on 16 MiB: all {r.count} offsets equal, "
+          f"K7 launches {swar.screened_nib.launches - before}")
+    c2_nib = c2_cfg.replace(emission="nib")
+    before = rk_roll.rk_candidate_nib.launches
+    t0 = time.perf_counter()
+    rs = match(big, c2_pats, algo="rabin_karp", config=c2_nib)
+    dt = time.perf_counter() - t0
+    for p, r, w in zip(c2_pats, rs, c2_want):
+        assert r.algo == "rabin_karp_multi" and r.count == len(w), (
+            f"(g) config 2 nib {p!r}: count {r.count} vs {len(w)}")
+        assert not r.overflow and np.array_equal(r.offsets, w), f"(g) config 2 nib {p!r}"
+    assert rk_roll.rk_candidate_nib.launches == before + 1
+    print(f"(g) config 2 under nib, 1 GB English k=8: counts {[r.count for r in rs]} "
+          f"== numpy reference, offsets equal, K10b launched once "
+          f"({dt:.2f} s from host bytes)")
+    launches_g = {k: kernels[k].launches for k in opt_in}
+    for k, v in launches_g.items():
+        assert v > 0, f"kernel {k} was not launched by the opt-in routes"
+    launches.update(launches_g)
+    print(f"opt-in-route launches (g): { {k: f.launches for k, f in kernels.items()} }")
 
     # -- (e) timings ---------------------------------------------------------
     text, pat = corpora["english"]
@@ -489,6 +648,39 @@ def main() -> int:
     t509 = torch.tensor([int(tables.rk_hash(u8(p509)))], device=dev)
     t8 = torch.tensor([int(tables.rk_hash(u8(p))) for p in config2_patterns(text)],
                       device=dev)
+    lay8 = swar.static_probes_from_table(swar.probe_table(u8(pat)))
+    # Bound of each case: the bytes it must move (the region read once, its
+    # outputs written once: block sums Nk/128 bytes, a nibble plane Nk) and
+    # the integer operations this input needs: a masked compare (AND,
+    # compare) per probe word and alignment per word, plus the verify of
+    # the candidate words (one alignment's nw compares) for K7/K8; one
+    # masked compare per alignment per word for the exact verify (a chain
+    # stops at its first mismatch); three per state word per byte for the
+    # automaton (shift, OR-AND, carry); two multiply-adds plus one compare
+    # per target per byte for the rolling hash (two for a pattern mask).
+    words, bsb = Nk / 4, Nk / 128
+    n_probe = sum(len(ks) for ks in probes)
+    nw = P.shape[1]
+    screen_ops = words * 2 * n_probe + cand_words["english"] * 2 * nw
+    shapes = {  # (kernel, what): (bytes, operations)
+        ("screen_cand_bsums", "m=16"): (Nk + bsb, words * 2 * n_probe),
+        ("naive_nib", "m=16"): (2 * Nk + bsb, words * 8),
+        ("naive_bsums", "m=16"): (Nk + bsb, words * 8),
+        ("kmp_bsums", "m=16"): (Nk + bsb, Nk * 3),
+        ("kmp_bsums", "m=256 K=8"): (Nk + bsb, Nk * 3 * 8),
+        ("rk_candidate_bsums", "m=16"): (Nk + bsb, Nk * 3),
+        ("rk_candidate_bsums", "m=509"): (Nk + bsb, Nk * 3),
+        ("rk_candidate_bsums", "k=8 m=16"): (Nk + bsb, Nk * 10),
+        ("rk_candidate_pmask", "k=8 m=16"): (Nk + bsb, Nk * 18),
+        ("screened_nib", "m=16 K7"): (2 * Nk + bsb, screen_ops),
+        ("screened_nib", "m=16 K8"): (2 * Nk + bsb, screen_ops),
+        ("screened_bsums", "m=16 K7"): (Nk + bsb, screen_ops),
+        ("kmp_nib", "m=16"): (2 * Nk + bsb, Nk * 3),
+        ("kmp_nib", "m=256 K=8"): (2 * Nk + bsb, Nk * 3 * 8),
+        ("rk_candidate_nib", "m=16"): (2 * Nk + bsb, Nk * 3),
+        ("rk_candidate_nib", "m=509"): (2 * Nk + bsb, Nk * 3),
+        ("rk_candidate_nib", "k=8 m=16"): (2 * Nk + bsb, Nk * 10),
+    }
     cases = {  # (kernel, what): (kernel call, plain call, plain iterations)
         ("screen_cand_bsums", "m=16"): (
             lambda: swar.screen_cand_bsums(region, limit, P, M, probes),
@@ -517,26 +709,59 @@ def main() -> int:
         ("rk_candidate_pmask", "k=8 m=16"): (
             lambda: rk_roll.rk_candidate_pmask(region, n - 16, t8, 16, base),
             lambda: rk_roll.rk_candidate_pmask_plain(region, n - 16, t8, 16, base), 3),
+        ("screened_nib", "m=16 K7"): (
+            lambda: swar.screened_nib(region, limit, P, M, probes),
+            lambda: swar.screened_nib_plain(region, limit, P, M, probes), 3),
+        ("screened_nib", "m=16 K8"): (
+            lambda: swar.screened_nib(region, limit, P, M, lay8),
+            lambda: swar.screened_nib_plain(region, limit, P, M, lay8), 3),
+        ("screened_bsums", "m=16 K7"): (
+            lambda: swar.screened_bsums(region, limit, P, M, probes),
+            lambda: swar.screened_bsums_plain(region, limit, P, M, probes), 3),
+        ("kmp_nib", "m=16"): (
+            lambda: shift_and.kmp_nib(region, n - 16, bt16, 16),
+            lambda: shift_and.kmp_nib_plain(region, n - 16, bt16, 16), 3),
+        ("kmp_nib", "m=256 K=8"): (
+            lambda: shift_and.kmp_nib(region, n - 256, bt256, 256),
+            lambda: shift_and.kmp_nib_plain(region, n - 256, bt256, 256), 1),
+        ("rk_candidate_nib", "m=16"): (
+            lambda: rk_roll.rk_candidate_nib(region, n - 16, t16, 16, base),
+            lambda: rk_roll.rk_candidate_nib_plain(region, n - 16, t16, 16, base), 2),
+        ("rk_candidate_nib", "m=509"): (
+            lambda: rk_roll.rk_candidate_nib(region, n - 509, t509, 509, base),
+            lambda: rk_roll.rk_candidate_nib_plain(region, n - 509, t509, 509, base), 1),
+        ("rk_candidate_nib", "k=8 m=16"): (
+            lambda: rk_roll.rk_candidate_nib(region, n - 16, t8, 16, base),
+            lambda: rk_roll.rk_candidate_nib_plain(region, n - 16, t8, 16, base), 2),
     }
-    ms, plain_ms = {}, {}
+    ms, plain_ms, bounds, shape = {}, {}, {}, {}
     for (k, what), (kern, plain, plain_iters) in cases.items():
         kt = cuda_ms(kern, 20)
         pt = cuda_ms(plain, plain_iters, warmup=1)
-        if what == "m=16" or k == "rk_candidate_pmask":
-            ms[k], plain_ms[k] = kt, pt
+        b_ms, b_by = bound(*shapes[(k, what)])
+        if k not in ms:  # the JSON line reports each kernel's first case
+            ms[k], plain_ms[k], bounds[k], shape[k] = kt, pt, (b_ms, b_by), what
         print(f"(e) {k} 256 MiB english {what}: kernel {kt:.4f} ms, plain "
-              f"{pt:.4f} ms, {Nk / kt / 1e6:.1f} GB/s kernel {card}")
+              f"{pt:.4f} ms, bound {b_ms:.4f} ms by {b_by} ({b_ms / kt:.3f} of it), "
+              f"{Nk / kt / 1e6:.1f} GB/s kernel {card}")
+        torch.cuda.empty_cache()
 
+    # Device-resident run per algorithm, sparse and nib in alternating passes.
     for algo in ALGOS:
-        mt = matchers[algo](pat, cfg, device=dev)
-        run_ms = host_ms(lambda: mt.run(padded, n), iters=10)
-        dev_ms, per_run = device_profile(lambda: mt.run(padded, n), runs=5)
-        med = statistics.median(run_ms)
-        print(f"(e) match device-resident 256 MiB english m=16 algo={algo}: "
-              f"passes {[round(x, 4) for x in run_ms]} ms, best {min(run_ms):.4f} ms = "
-              f"{n / min(run_ms) / 1e6:.1f} GB/s; profiler: device {dev_ms:.4f} ms/run, "
-              f"{per_run:.0f} device events/run, idle share {1 - dev_ms / med:.3f} "
-              f"of the median pass {card}")
+        mts = {e: matchers[algo](pat, cfg.replace(emission=e), device=dev)
+               for e in ("sparse", "nib")}
+        passes = {e: [] for e in mts}
+        for _ in range(3):
+            for e, mt in mts.items():
+                passes[e] += host_ms(lambda: mt.run(padded, n), iters=10, passes=1)
+        for e, mt in mts.items():
+            dev_ms, per_run = device_profile(lambda: mt.run(padded, n), runs=5)
+            med = statistics.median(passes[e])
+            print(f"(e) match device-resident 256 MiB english m=16 algo={algo} "
+                  f"emission={e}: passes {[round(x, 4) for x in passes[e]]} ms, median "
+                  f"{med:.4f} ms = {n / med / 1e6:.1f} GB/s; profiler: device "
+                  f"{dev_ms:.4f} ms/run, {per_run:.0f} device events/run, idle share "
+                  f"{1 - dev_ms / med:.3f} of the median pass {card}")
         host = host_ms(lambda: match(text, pat, algo=algo), iters=2, passes=2)
         print(f"(e) match from host bytes 256 MiB english m=16 algo={algo}: passes "
               f"{[round(x, 4) for x in host]} ms, best {min(host):.4f} ms = "
@@ -575,14 +800,30 @@ def main() -> int:
         print(f"(e) config 2 pattern {p_i} {p!r}: {len(c2_want[p_i])} matches, "
               f"{chunks} candidate chunks -> "
               f"{'K2 rescan' if chunks > width else 'chunk gather'} (width {width})")
-    run_ms = host_ms(lambda: mm.run(big_dev, nb), iters=5)
-    dev_ms, per_run = device_profile(lambda: mm.run(big_dev, nb), runs=3)
-    med = statistics.median(run_ms)
-    print(f"(e) config 2 RabinKarpMultiMatcher.run device-resident 1 GB k=8 m=16: "
-          f"passes {[round(x, 4) for x in run_ms]} ms, median {med:.4f} ms = "
-          f"{nb / med / 1e6:.1f} GB/s; profiler: device {dev_ms:.4f} ms/run, "
-          f"{per_run:.0f} device events/run, idle share {1 - dev_ms / med:.3f} of the "
-          f"median pass {card}")
+    del pm
+    torch.cuda.empty_cache()
+    kt = cuda_ms(lambda: rk_roll.rk_candidate_nib(big_region, nb - 16, tgt, 16, base), 10)
+    pt = cuda_ms(lambda: rk_roll.rk_candidate_nib_plain(big_region, nb - 16, tgt, 16, base),
+                 1, warmup=1)
+    b_ms, b_by = bound(2 * big_dev.numel() + big_dev.numel() / 128, big_dev.numel() * 10)
+    print(f"(e) rk_candidate_nib 1 GB english k=8 m=16 (config 2 under nib): kernel "
+          f"{kt:.4f} ms, plain {pt:.4f} ms, bound {b_ms:.4f} ms by {b_by}, "
+          f"{big_region.numel() * 4 / kt / 1e6:.1f} GB/s kernel {card}")
+    torch.cuda.empty_cache()
+    mms = {"sparse": mm,
+           "nib": RabinKarpMultiMatcher(c2_pats, c2_nib, device=dev)}
+    passes = {e: [] for e in mms}
+    for _ in range(3):
+        for e, mt in mms.items():
+            passes[e] += host_ms(lambda: mt.run(big_dev, nb), iters=3, passes=1)
+    for e, mt in mms.items():
+        dev_ms, per_run = device_profile(lambda: mt.run(big_dev, nb), runs=3)
+        med = statistics.median(passes[e])
+        print(f"(e) config 2 RabinKarpMultiMatcher.run device-resident 1 GB k=8 m=16 "
+              f"emission={e}: passes {[round(x, 4) for x in passes[e]]} ms, median "
+              f"{med:.4f} ms = {nb / med / 1e6:.1f} GB/s; profiler: device "
+              f"{dev_ms:.4f} ms/run, {per_run:.0f} device events/run, idle share "
+              f"{1 - dev_ms / med:.3f} of the median pass {card}")
     host = host_ms(lambda: match(big, c2_pats, algo="rabin_karp", config=c2_cfg),
                    iters=1, passes=2)
     print(f"(e) config 2 match from host bytes 1 GB: passes "
@@ -597,12 +838,23 @@ def main() -> int:
                "rk_candidate_bsums": ("rk_roll.cu", "kernels/rk_roll.py:93"),
                "rk_candidate_pmask": ("rk_roll.cu",
                                       "kernels/rk_roll.py:93 emit='pmask' + "
-                                      f"{REF}/kernels/shift_and.py:196")}
+                                      f"{REF}/kernels/shift_and.py:196"),
+               "screened_nib": ("swar.cu", "kernels/swar.py:393 + "
+                                f"{REF}/kernels/swar.py:515 (emit_nib=True)"),
+               "screened_bsums": ("swar.cu", "kernels/swar.py:393 + "
+                                  f"{REF}/kernels/swar.py:515 (emit_nib=False)"),
+               "kmp_nib": ("shift_and.cu", "kernels/shift_and.py:245 emit='nib' + "
+                           f"{REF}/kernels/shift_and.py:557"),
+               "rk_candidate_nib": ("rk_roll.cu", "kernels/rk_roll.py:93 emit='nib' + "
+                                    f"{REF}/kernels/shift_and.py:557")}
     print(nvidia_smi())
+    # No single PyTorch call computes any of these functions: library_ms null.
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": f"{PKG}/csrc/{src}",
          "replaces": f"{REF}/{ref}", "launches": launches[k],
-         "max_abs_err": errs[k], "ms": ms[k], "plain_ms": plain_ms[k]}
+         "max_abs_err": errs[k], "ms": ms[k], "plain_ms": plain_ms[k],
+         "bound_ms": bounds[k][0], "bound_by": bounds[k][1], "library_ms": None,
+         "shape": f"256 MiB english {shape[k]}"}
         for k, (src, ref) in sources.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,9 @@
 // Rolling-hash Rabin-Karp screen for Hopper (sm_90a).
 //
-// Replaces kernels/rk_roll.py::_kernel (Pallas, TPU) with emit='bsums' (K5)
-// and with emit='pmask' plus kernels/shift_and.py::_end_to_start_pmask (K6).
+// Replaces kernels/rk_roll.py::_kernel (Pallas, TPU) with emit='bsums' (K5),
+// with emit='pmask' plus kernels/shift_and.py::_end_to_start_pmask (K6),
+// and with emit='nib' plus its host wrapper's end-to-start shift
+// (rk_candidate_nib, shift_and.end_nibble3_to_start_nib) (K10b).
 //
 // The window hash of m bytes x[s..s+m-1] is H = sum_j x[s+j] * B^(m-1-j)
 // mod 2^32 (ops/tables.rk_hash).  It rolls one byte at a time,
@@ -21,7 +23,7 @@
 // candidates, not matches: ops/reconstruct.extract_region verifies and
 // recounts them.  The count goes straight to bs[block].
 //
-// K6 is the same kernel with kPmask set: instead of counting, it ORs bit p
+// K6 is the same kernel with Emit::kPmask: instead of counting, it ORs bit p
 // into the block's mask when a start's hash equals target p (k <= 31, so the
 // sign bit is never used).  Bit p of bs[block] is then exactly "some start
 // s <= n_lim in this block hashes to pattern p", the tightest per-pattern
@@ -30,13 +32,22 @@
 // TPU sub-chunk rolls cold over zero front padding); every bit set here is
 // set there too.
 //
+// K10b is the same kernel with Emit::kNib: it counts as K5 does (bs equals
+// K5's for the same targets) and also writes the candidate nibble plane,
+// bit j & 3 of word j >> 2 for each counted start j of the block.  The
+// reference emits END positions and shifts them to starts outside the
+// kernel; the thread here knows j and emits starts directly.  The starts
+// arrive in order, 16 to a 16-bit accumulator, stored as one 16-byte write
+// of four nibble words when the 16th is known.
+//
 // Bound on the H100: latency and issue, not HBM.  Each step is a serial
 // multiply-add chain on H plus k compares; the entering bytes come 16 per
 // load, the departing bytes (the same stream m bytes behind, L1/L2 hits)
 // as five 4-byte loads per 16 steps aligned with funnel shifts.  Loads of
 // neighbouring threads are 512 bytes apart, so none is coalesced.  Making
 // it fast (the reference's word-level Horner split, a warp per block) is
-// later work.
+// later work.  K10b adds one write of the nibble plane, the region's size
+// (80 us more at 256 MiB), in 16-byte stores 512 bytes apart.
 
 #include "scan.cuh"
 
@@ -49,12 +60,16 @@ using tpm::load16;
 constexpr int kThreads = 128;
 constexpr int kMaxPattern = 509;
 
-template <bool kPmask>
+// What a block's scan emits: K5's count, K6's pattern mask, or K10b's count
+// plus the candidate nibble plane.
+enum class Emit { kCount, kPmask, kNib };
+
+template <Emit kEmit>
 __global__ void __launch_bounds__(kThreads)
 rk_scan_kernel(const uint8_t* __restrict__ text, long long n_bytes,
                long long n_lim, int m, uint32_t B, uint32_t Bm,
                const uint32_t* __restrict__ targets, int k,
-               int* __restrict__ bs) {
+               int* __restrict__ nib, int* __restrict__ bs) {
   extern __shared__ uint32_t tgt[];  // the k target hashes
   for (int t = threadIdx.x; t < k; t += kThreads) tgt[t] = targets[t];
   __syncthreads();
@@ -73,7 +88,10 @@ rk_scan_kernel(const uint8_t* __restrict__ text, long long n_bytes,
   const int sh = (-m) & 3;
 
   uint32_t H = 0u;
-  uint32_t out = 0u;  // K5: candidate count; K6: pattern-hit mask
+  uint32_t out = 0u;  // K5, K10b: candidate count; K6: pattern-hit mask
+  uint32_t group = 0u;  // K10b: starts 16g..16g+15, bit j & 15
+  uint4* nib4 =
+      kEmit == Emit::kNib ? reinterpret_cast<uint4*>(nib + base / 4) : nullptr;
   for (int q = 0; q < steps; q += 16) {
     const uint4 v = load16(text, base + q, n_bytes);
     const int wrel = (q - m + kBlockBytes) / 4 - kBlockBytes / 4;
@@ -92,13 +110,21 @@ rk_scan_kernel(const uint8_t* __restrict__ text, long long n_bytes,
     for (int i = 0; i < 16; ++i) {
       H = H * B + byte_of(v, i) - byte_of(o, i) * Bm;
       const int j = q + i - (m - 1);
-      if (j >= 0 && j < lim) {
-        if (kPmask) {
+      if (kEmit == Emit::kPmask) {
+        if (j >= 0 && j < lim)
           for (int p = 0; p < k; ++p) out |= (uint32_t)(H == tgt[p]) << p;
-        } else {
-          bool hit = false;
+      } else {
+        bool hit = false;
+        if (j >= 0 && j < lim)
           for (int p = 0; p < k; ++p) hit |= H == tgt[p];
-          out += (uint32_t)hit;
+        out += (uint32_t)hit;
+        if (kEmit == Emit::kNib && j >= 0 && j < kBlockBytes) {
+          group |= (uint32_t)hit << (j & 15);
+          if ((j & 15) == 15) {
+            nib4[j >> 4] = make_uint4(group & 0xFu, (group >> 4) & 0xFu,
+                                      (group >> 8) & 0xFu, group >> 12);
+            group = 0u;
+          }
         }
       }
     }
@@ -106,21 +132,22 @@ rk_scan_kernel(const uint8_t* __restrict__ text, long long n_bytes,
   bs[blk] = (int)out;
 }
 
-template <bool kPmask>
+template <Emit kEmit>
 int launch_scan(const void* text, long long n_bytes, long long n_lim, int m,
                 unsigned int B, unsigned int Bm, const void* targets, int k,
-                void* bs, void* stream) {
+                void* nib, void* bs, void* stream) {
   if (n_bytes % kBlockBytes != 0 || m < 1 || m > kMaxPattern || k < 1 ||
-      (kPmask && k > 31) || (B & 1u) == 0u ||
-      reinterpret_cast<uintptr_t>(text) % 16 != 0)
+      (kEmit == Emit::kPmask && k > 31) || (B & 1u) == 0u ||
+      reinterpret_cast<uintptr_t>(text) % 16 != 0 ||
+      (kEmit == Emit::kNib && reinterpret_cast<uintptr_t>(nib) % 16 != 0))
     return (int)cudaErrorInvalidValue;
   const long long n_blocks = n_bytes / kBlockBytes;
   if (n_blocks == 0) return 0;
   const unsigned grid = (unsigned)((n_blocks + kThreads - 1) / kThreads);
-  rk_scan_kernel<kPmask><<<grid, kThreads, (size_t)k * sizeof(uint32_t),
-                           (cudaStream_t)stream>>>(
+  rk_scan_kernel<kEmit><<<grid, kThreads, (size_t)k * sizeof(uint32_t),
+                          (cudaStream_t)stream>>>(
       (const uint8_t*)text, n_bytes, n_lim, m, B, Bm,
-      (const uint32_t*)targets, k, (int*)bs);
+      (const uint32_t*)targets, k, (int*)nib, (int*)bs);
   return (int)cudaGetLastError();
 }
 
@@ -135,8 +162,8 @@ int tpm_rk_candidate_bsums(const void* text, long long n_bytes,
                            long long n_lim, int m, unsigned int B,
                            unsigned int Bm, const void* targets, int k,
                            void* bs, void* stream) {
-  return launch_scan<false>(text, n_bytes, n_lim, m, B, Bm, targets, k, bs,
-                            stream);
+  return launch_scan<Emit::kCount>(text, n_bytes, n_lim, m, B, Bm, targets, k,
+                                   nullptr, bs, stream);
 }
 
 // The same arguments; k must be in 1..31.  bs[b] gets the k-bit mask.
@@ -144,8 +171,18 @@ int tpm_rk_candidate_pmask(const void* text, long long n_bytes,
                            long long n_lim, int m, unsigned int B,
                            unsigned int Bm, const void* targets, int k,
                            void* bs, void* stream) {
-  return launch_scan<true>(text, n_bytes, n_lim, m, B, Bm, targets, k, bs,
-                           stream);
+  return launch_scan<Emit::kPmask>(text, n_bytes, n_lim, m, B, Bm, targets, k,
+                                   nullptr, bs, stream);
+}
+
+// The same arguments as tpm_rk_candidate_bsums, plus nib: n_bytes / 4 ints,
+// 16-byte aligned.  bs gets K5's counts.
+int tpm_rk_candidate_nib(const void* text, long long n_bytes, long long n_lim,
+                         int m, unsigned int B, unsigned int Bm,
+                         const void* targets, int k, void* nib, void* bs,
+                         void* stream) {
+  return launch_scan<Emit::kNib>(text, n_bytes, n_lim, m, B, Bm, targets, k,
+                                 nib, bs, stream);
 }
 
 }  // extern "C"

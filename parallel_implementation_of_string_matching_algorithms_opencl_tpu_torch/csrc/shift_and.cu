@@ -1,7 +1,9 @@
 // Shift-AND prefix automaton (KMP's scan) for Hopper (sm_90a).
 //
 // Replaces kernels/shift_and.py::_kernel (Pallas, TPU), per-byte step
-// group_perbyte, with emit='bsums'.
+// group_perbyte, with emit='bsums' (K4, kmp_bsums) and with emit='nib'
+// plus its host wrapper's end-to-start shift end_nibble3_to_start_nib (K10a,
+// kmp_nib).
 //
 // The automaton runs D = ((D << 1) | 1) & B[c] over K = ceil(m/32) state
 // words: bit j of D is "pattern[0..j] ends at this byte", B[k][c] has bit j
@@ -18,13 +20,23 @@
 // largest valid start; the count goes straight to bs[block], with no
 // reduction across threads.  At 256 MiB that is 524,288 threads.
 //
+// K10a (kEmitNib) also writes the nibble plane of the block's starts: bit
+// j & 3 of word j >> 2 for each counted start j.  The reference's kernel
+// emits END positions and its host wrapper shifts them to starts outside the
+// kernel; the thread here knows j, so it emits starts directly, with the
+// validity s <= n_lim applied.  Starts arrive in order, 16 to a 16-bit
+// accumulator, stored as one 16-byte write of four nibble words when the
+// 16th is known.
+//
 // Bound on the H100: latency and issue, not HBM.  Each thread runs a serial
 // chain of 512 + m - 1 steps, each K shared-memory lookups of B (K * 1 KiB
 // per CUDA block) and 3K integer operations; the text is read once, 16
 // bytes per load.  Neighbouring threads read 16-byte groups 512 bytes
 // apart, so loads are not coalesced: every load touches its own 32-byte
 // sector.  Making it fast (a warp per block, a transposed feed through
-// shared memory) is later work.
+// shared memory) is later work.  K10a adds one write of the nibble plane
+// (the region's size again, 80 us more at 256 MiB); the 16-byte stores of
+// neighbouring threads are 512 bytes apart as well.
 
 #include "scan.cuh"
 
@@ -37,11 +49,11 @@ using tpm::load16;
 constexpr int kThreads = 128;
 constexpr int kMaxStateWords = 8;
 
-template <int K>
+template <int K, bool kEmitNib>
 __global__ void __launch_bounds__(kThreads)
-kmp_bsums_kernel(const uint8_t* __restrict__ text, long long n_bytes,
-                 long long n_lim, const uint32_t* __restrict__ B, int m,
-                 int* __restrict__ bs) {
+kmp_scan_kernel(const uint8_t* __restrict__ text, long long n_bytes,
+                long long n_lim, const uint32_t* __restrict__ B, int m,
+                int* __restrict__ nib, int* __restrict__ bs) {
   __shared__ uint32_t sB[K * 256];
   for (int t = threadIdx.x; t < K * 256; t += kThreads) sB[t] = B[t];
   __syncthreads();
@@ -59,6 +71,8 @@ kmp_bsums_kernel(const uint8_t* __restrict__ text, long long n_bytes,
 #pragma unroll
   for (int k = 0; k < K; ++k) D[k] = 0u;
   int count = 0;
+  uint32_t group = 0u;  // kEmitNib: starts 16g..16g+15, bit j & 15
+  uint4* out = kEmitNib ? reinterpret_cast<uint4*>(nib + base / 4) : nullptr;
   for (int q = 0; q < steps; q += 16) {
     const uint4 v = load16(text, base + q, n_bytes);
 #pragma unroll
@@ -74,18 +88,53 @@ kmp_bsums_kernel(const uint8_t* __restrict__ text, long long n_bytes,
       // The match ending at this byte starts at block-local j.
       const int j = q + i - (m - 1);
       const bool own = j >= 0 && j < lim;
-      count += (int)(((D[K - 1] >> hit_bit) & 1u) != 0u && own);
+      const bool hit = ((D[K - 1] >> hit_bit) & 1u) != 0u && own;
+      count += (int)hit;
+      if (kEmitNib && j >= 0 && j < kBlockBytes) {
+        group |= (uint32_t)hit << (j & 15);
+        if ((j & 15) == 15) {
+          out[j >> 4] = make_uint4(group & 0xFu, (group >> 4) & 0xFu,
+                                   (group >> 8) & 0xFu, group >> 12);
+          group = 0u;
+        }
+      }
     }
   }
   bs[blk] = count;
 }
 
-template <int K>
-void launch(const void* text, long long n_bytes, long long n_lim,
-            const void* B, int m, void* bs, unsigned grid,
-            cudaStream_t stream) {
-  kmp_bsums_kernel<K><<<grid, kThreads, 0, stream>>>(
-      (const uint8_t*)text, n_bytes, n_lim, (const uint32_t*)B, m, (int*)bs);
+template <int K, bool kEmitNib>
+void launch_k(const void* text, long long n_bytes, long long n_lim,
+              const void* B, int m, void* nib, void* bs, unsigned grid,
+              cudaStream_t stream) {
+  kmp_scan_kernel<K, kEmitNib><<<grid, kThreads, 0, stream>>>(
+      (const uint8_t*)text, n_bytes, n_lim, (const uint32_t*)B, m, (int*)nib,
+      (int*)bs);
+}
+
+template <bool kEmitNib>
+int launch(const void* text, long long n_bytes, long long n_lim,
+           const void* B, int K, int m, void* nib, void* bs, void* stream) {
+  if (n_bytes % kBlockBytes != 0 || K < 1 || K > kMaxStateWords ||
+      m < 32 * (K - 1) + 1 || m > 32 * K ||
+      reinterpret_cast<uintptr_t>(text) % 16 != 0 ||
+      (kEmitNib && reinterpret_cast<uintptr_t>(nib) % 16 != 0))
+    return (int)cudaErrorInvalidValue;
+  const long long n_blocks = n_bytes / kBlockBytes;
+  if (n_blocks == 0) return 0;
+  const unsigned grid = (unsigned)((n_blocks + kThreads - 1) / kThreads);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (K) {
+    case 1: launch_k<1, kEmitNib>(text, n_bytes, n_lim, B, m, nib, bs, grid, s); break;
+    case 2: launch_k<2, kEmitNib>(text, n_bytes, n_lim, B, m, nib, bs, grid, s); break;
+    case 3: launch_k<3, kEmitNib>(text, n_bytes, n_lim, B, m, nib, bs, grid, s); break;
+    case 4: launch_k<4, kEmitNib>(text, n_bytes, n_lim, B, m, nib, bs, grid, s); break;
+    case 5: launch_k<5, kEmitNib>(text, n_bytes, n_lim, B, m, nib, bs, grid, s); break;
+    case 6: launch_k<6, kEmitNib>(text, n_bytes, n_lim, B, m, nib, bs, grid, s); break;
+    case 7: launch_k<7, kEmitNib>(text, n_bytes, n_lim, B, m, nib, bs, grid, s); break;
+    default: launch_k<8, kEmitNib>(text, n_bytes, n_lim, B, m, nib, bs, grid, s); break;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -97,25 +146,14 @@ extern "C" {
 // n_bytes / 512 ints.
 int tpm_kmp_bsums(const void* text, long long n_bytes, long long n_lim,
                   const void* B, int K, int m, void* bs, void* stream) {
-  if (n_bytes % kBlockBytes != 0 || K < 1 || K > kMaxStateWords ||
-      m < 32 * (K - 1) + 1 || m > 32 * K ||
-      reinterpret_cast<uintptr_t>(text) % 16 != 0)
-    return (int)cudaErrorInvalidValue;
-  const long long n_blocks = n_bytes / kBlockBytes;
-  if (n_blocks == 0) return 0;
-  const unsigned grid = (unsigned)((n_blocks + kThreads - 1) / kThreads);
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (K) {
-    case 1: launch<1>(text, n_bytes, n_lim, B, m, bs, grid, s); break;
-    case 2: launch<2>(text, n_bytes, n_lim, B, m, bs, grid, s); break;
-    case 3: launch<3>(text, n_bytes, n_lim, B, m, bs, grid, s); break;
-    case 4: launch<4>(text, n_bytes, n_lim, B, m, bs, grid, s); break;
-    case 5: launch<5>(text, n_bytes, n_lim, B, m, bs, grid, s); break;
-    case 6: launch<6>(text, n_bytes, n_lim, B, m, bs, grid, s); break;
-    case 7: launch<7>(text, n_bytes, n_lim, B, m, bs, grid, s); break;
-    default: launch<8>(text, n_bytes, n_lim, B, m, bs, grid, s); break;
-  }
-  return (int)cudaGetLastError();
+  return launch<false>(text, n_bytes, n_lim, B, K, m, nullptr, bs, stream);
+}
+
+// The same arguments, plus nib: n_bytes / 4 ints, 16-byte aligned.
+int tpm_kmp_nib(const void* text, long long n_bytes, long long n_lim,
+                const void* B, int K, int m, void* nib, void* bs,
+                void* stream) {
+  return launch<true>(text, n_bytes, n_lim, B, K, m, nib, bs, stream);
 }
 
 }  // extern "C"

@@ -66,49 +66,40 @@ screen_cand_kernel(const uint32_t* __restrict__ words, long long n_words,
   if (threadIdx.x == 0) bs[blockIdx.x] = count;
 }
 
-// Exact verify of every start.  kEmitNib = true replaces
-// kernels/swar.py::_naive_kernel (naive_nib with emit_nib=True), the full
-// rescan that extract_region escalates to when candidate chunks outnumber
-// its gather width.  kEmitNib = false replaces
-// kernels/swar.py::_naive_sparse_kernel (emit_nib=False), the naive
-// matcher's scan: the same verify without the nibble store.
-//
-// Bit a of a word's nibble is set when the pattern matches at byte 4w + a.
-// Validity is per ALIGNMENT (as the reference's _validity_nibble and the
-// sparse kernel's keep clamp): bit a is kept only if 4w + a <= n_lim.
-// bs[block] is the popcount of the block's 128 nibbles: its exact match
-// count.
-//
-// Bound on the H100: one read of the region, plus one write of the int32
-// nibble plane of the same size when kEmitNib (about 80 us or 160 us for
-// 256 MiB at 3.35 TB/s).  The pattern words sit in shared memory; each
-// alignment's AND chain stops at its first mismatch, so on ordinary text a
-// thread reads one or two words per alignment whatever m is.
-template <bool kEmitNib>
-__global__ void __launch_bounds__(kBlockWords)
-naive_kernel(const uint32_t* __restrict__ words, long long n_words,
-             long long n_lim, const uint32_t* __restrict__ P,
-             const uint32_t* __restrict__ M, int nw, int* __restrict__ nib,
-             int* __restrict__ bs) {
-  extern __shared__ uint32_t pm[];  // P[4][nw] then M[4][nw]
+// P[4][nw] then M[4][nw] into shared memory (2 * 4 * nw words).
+__device__ __forceinline__ void stage_pattern(const uint32_t* __restrict__ P,
+                                              const uint32_t* __restrict__ M,
+                                              int nw, uint32_t* pm) {
   for (int t = threadIdx.x; t < 4 * nw; t += kBlockWords) {
     pm[t] = P[t];
     pm[4 * nw + t] = M[t];
   }
   __syncthreads();
+}
 
-  const long long w = (long long)blockIdx.x * kBlockWords + threadIdx.x;
-  int bits = 0;
-  for (int a = 0; a < 4; ++a) {
-    const uint32_t* pa = pm + a * nw;
-    const uint32_t* ma = pm + 4 * nw + a * nw;
-    bool ok = true;
-    for (int k = 0; k < nw && ok; ++k) {
-      const uint32_t mk = ma[k];
-      if (mk != 0u) ok = (load_word(words, w + k, n_words) & mk) == pa[k];
-    }
-    bits |= (int)ok << a;
+// The AND chain of alignment a at word w, stopping at its first mismatch.
+__device__ __forceinline__ bool verify_alignment(
+    const uint32_t* __restrict__ words, long long w, long long n_words,
+    const uint32_t* pm, int nw, int a) {
+  const uint32_t* pa = pm + a * nw;
+  const uint32_t* ma = pm + 4 * nw + a * nw;
+  bool ok = true;
+  for (int k = 0; k < nw && ok; ++k) {
+    const uint32_t mk = ma[k];
+    if (mk != 0u) ok = (load_word(words, w + k, n_words) & mk) == pa[k];
   }
+  return ok;
+}
+
+// Clears bit a of a word's nibble unless 4w + a <= n_lim (validity per
+// ALIGNMENT, as the reference's _validity_nibble), stores the nibble when
+// kEmitNib, and writes the popcount of the CUDA block's 128 nibbles (its
+// exact match count) to bs[blockIdx.x].
+template <bool kEmitNib>
+__device__ __forceinline__ void emit_nibble(int bits, long long w,
+                                            long long n_lim,
+                                            int* __restrict__ nib,
+                                            int* __restrict__ bs) {
   long long keep = n_lim - 4 * w + 1;
   keep = keep < 0 ? 0 : (keep > 4 ? 4 : keep);
   bits &= (1 << (int)keep) - 1;
@@ -128,11 +119,93 @@ naive_kernel(const uint32_t* __restrict__ words, long long n_words,
   }
 }
 
+// Exact verify of every start.  kEmitNib = true replaces
+// kernels/swar.py::_naive_kernel (naive_nib with emit_nib=True), the full
+// rescan that extract_region escalates to when candidate chunks outnumber
+// its gather width, and the naive matcher's emission='nib' scan.
+// kEmitNib = false replaces kernels/swar.py::_naive_sparse_kernel
+// (emit_nib=False), the naive matcher's sparse scan: the same verify
+// without the nibble store.
+//
+// Bit a of a word's nibble is set when the pattern matches at byte 4w + a,
+// kept only if 4w + a <= n_lim (emit_nibble).  bs[block] is the block's
+// exact match count.
+//
+// Bound on the H100: one read of the region, plus one write of the int32
+// nibble plane of the same size when kEmitNib (about 80 us or 160 us for
+// 256 MiB at 3.35 TB/s).  The pattern words sit in shared memory; each
+// alignment's AND chain stops at its first mismatch, so on ordinary text a
+// thread reads one or two words per alignment whatever m is.
+template <bool kEmitNib>
+__global__ void __launch_bounds__(kBlockWords)
+naive_kernel(const uint32_t* __restrict__ words, long long n_words,
+             long long n_lim, const uint32_t* __restrict__ P,
+             const uint32_t* __restrict__ M, int nw, int* __restrict__ nib,
+             int* __restrict__ bs) {
+  extern __shared__ uint32_t pm[];
+  stage_pattern(P, M, nw, pm);
+  const long long w = (long long)blockIdx.x * kBlockWords + threadIdx.x;
+  int bits = 0;
+  for (int a = 0; a < 4; ++a)
+    bits |= (int)verify_alignment(words, w, n_words, pm, nw, a) << a;
+  emit_nibble<kEmitNib>(bits, w, n_lim, nib, bs);
+}
+
+// Boyer-Moore screen, then exact verify (K7 and K8).  Replaces
+// kernels/swar.py::_screened_kernel (bm_screen='fused', emission='nib';
+// probe indices fixed per pattern) and kernels/swar.py::_screened_dyn_kernel
+// (bm_probes='table_dyn'; probe indices as runtime scalars).  Here both are
+// this one kernel: the probe indices are kernel arguments either way, and a
+// runtime index costs nothing on Hopper, so the TPU's split between static
+// lane slices and dynamic rotates has no counterpart.
+//
+// Each thread first runs K1's probe compares for its word.  Only an
+// alignment whose probe words all compare equal runs K2's AND chain; a true
+// match at alignment a passes a's probe words (they are among its pattern
+// words), so skipping the rest is exact, and nib and bs equal K2's (K3's)
+// bit for bit.  The TPU skips a whole 512 KiB tile at once because Mosaic
+// predicates no finer (swar.py:397-405); a thread here skips per word.
+// Validity is per alignment against n_lim (K2's clamp), and bs[block] is
+// the exact match count; kEmitNib also stores the nibble plane.
+//
+// Bound on the H100: as K2, one read of the region plus, with the nibble
+// plane, one write of the same size (about 80 us or 160 us for 256 MiB at
+// 3.35 TB/s).  The verify runs only on words with a probe hit, so on
+// ordinary text the work per word is K1's eight masked compares.
+template <bool kEmitNib>
+__global__ void __launch_bounds__(kBlockWords)
+screened_kernel(const uint32_t* __restrict__ words, long long n_words,
+                long long n_lim, const uint32_t* __restrict__ P,
+                const uint32_t* __restrict__ M, int nw, Probes pr,
+                int* __restrict__ nib, int* __restrict__ bs) {
+  extern __shared__ uint32_t pm[];
+  stage_pattern(P, M, nw, pm);
+  const long long w = (long long)blockIdx.x * kBlockWords + threadIdx.x;
+  int bits = 0;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const uint32_t* pa = pm + a * nw;
+    const uint32_t* ma = pm + 4 * nw + a * nw;
+    const int k0 = pr.k[a][0];
+    const int k1 = pr.k[a][1];
+    const bool h0 = (load_word(words, w + k0, n_words) & ma[k0]) == pa[k0];
+    const bool h1 = (load_word(words, w + k1, n_words) & ma[k1]) == pa[k1];
+    if (h0 && h1)
+      bits |= (int)verify_alignment(words, w, n_words, pm, nw, a) << a;
+  }
+  emit_nibble<kEmitNib>(bits, w, n_lim, nib, bs);
+}
+
+int check_args(long long n_words, int nw) {
+  return (n_words % kBlockWords != 0 || nw < 1) ? (int)cudaErrorInvalidValue
+                                                : 0;
+}
+
 template <bool kEmitNib>
 int launch_naive(const void* words, long long n_words, long long n_lim,
                  const void* P, const void* M, int nw, void* nib, void* bs,
                  void* stream) {
-  if (n_words % kBlockWords != 0 || nw < 1) return (int)cudaErrorInvalidValue;
+  if (int err = check_args(n_words, nw)) return err;
   const long long blocks = n_words / kBlockWords;
   if (blocks == 0) return 0;
   const size_t smem = 2 * 4 * (size_t)nw * sizeof(uint32_t);
@@ -140,6 +213,24 @@ int launch_naive(const void* words, long long n_words, long long n_lim,
                            (cudaStream_t)stream>>>(
       (const uint32_t*)words, n_words, n_lim, (const uint32_t*)P,
       (const uint32_t*)M, nw, (int*)nib, (int*)bs);
+  return (int)cudaGetLastError();
+}
+
+template <bool kEmitNib>
+int launch_screened(const void* words, long long n_words, long long n_lim,
+                    const void* P, const void* M, int nw, const Probes& pr,
+                    void* nib, void* bs, void* stream) {
+  if (int err = check_args(n_words, nw)) return err;
+  for (int a = 0; a < 4; ++a)
+    for (int s = 0; s < 2; ++s)
+      if (pr.k[a][s] < 0 || pr.k[a][s] >= nw) return (int)cudaErrorInvalidValue;
+  const long long blocks = n_words / kBlockWords;
+  if (blocks == 0) return 0;
+  const size_t smem = 2 * 4 * (size_t)nw * sizeof(uint32_t);
+  screened_kernel<kEmitNib><<<(unsigned)blocks, kBlockWords, smem,
+                              (cudaStream_t)stream>>>(
+      (const uint32_t*)words, n_words, n_lim, (const uint32_t*)P,
+      (const uint32_t*)M, nw, pr, (int*)nib, (int*)bs);
   return (int)cudaGetLastError();
 }
 
@@ -152,7 +243,7 @@ int tpm_screen_cand_bsums(const void* words, long long n_words, long long n_lim,
                           const void* P, const void* M, int nw, int k00,
                           int k01, int k10, int k11, int k20, int k21, int k30,
                           int k31, void* bs, void* stream) {
-  if (n_words % kBlockWords != 0 || nw < 1) return (int)cudaErrorInvalidValue;
+  if (int err = check_args(n_words, nw)) return err;
   const long long blocks = n_words / kBlockWords;
   if (blocks == 0) return 0;
   Probes pr = {{{k00, k01}, {k10, k11}, {k20, k21}, {k30, k31}}};
@@ -175,6 +266,28 @@ int tpm_naive_bsums(const void* words, long long n_words, long long n_lim,
                     void* stream) {
   return launch_naive<false>(words, n_words, n_lim, P, M, nw, nullptr, bs,
                              stream);
+}
+
+// K7/K8 with the nibble plane: the probe word indices per alignment as in
+// tpm_screen_cand_bsums, each in [0, nw).  nib must hold n_words ints and
+// bs n_words / 128.
+int tpm_screened_nib(const void* words, long long n_words, long long n_lim,
+                     const void* P, const void* M, int nw, int k00, int k01,
+                     int k10, int k11, int k20, int k21, int k30, int k31,
+                     void* nib, void* bs, void* stream) {
+  const Probes pr = {{{k00, k01}, {k10, k11}, {k20, k21}, {k30, k31}}};
+  return launch_screened<true>(words, n_words, n_lim, P, M, nw, pr, nib, bs,
+                               stream);
+}
+
+// K7/K8 without the nibble plane: bs only (exact match counts).
+int tpm_screened_bsums(const void* words, long long n_words, long long n_lim,
+                       const void* P, const void* M, int nw, int k00, int k01,
+                       int k10, int k11, int k20, int k21, int k30, int k31,
+                       void* bs, void* stream) {
+  const Probes pr = {{{k00, k01}, {k10, k11}, {k20, k21}, {k30, k31}}};
+  return launch_screened<false>(words, n_words, n_lim, P, M, nw, pr, nullptr,
+                                bs, stream);
 }
 
 }  // extern "C"

@@ -6,10 +6,11 @@ The window hash ``H = sum_j x[s+j] * B^(m-1-j) mod 2**32``
 ``H <- H*B + in - out*B^m``, and windows whose hash equals a target are
 candidate starts; the caller verifies them.
 
-Two kernels (``csrc/rk_roll.cu``, one template): K5 ``rk_candidate_bsums``
+Three kernels (``csrc/rk_roll.cu``, one template): K5 ``rk_candidate_bsums``
 counts candidate starts per 512-byte block; K6 ``rk_candidate_pmask`` sets,
 per block, bit p when a start hashes to pattern p (the multi-pattern
-screen, k <= 31).  Each has a plain PyTorch version in this module and a
+screen, k <= 31); K10b ``rk_candidate_nib`` writes K5's counts and the
+candidate nibble plane (``emission='nib'``).  Each has a plain PyTorch version in this module and a
 launch counter (``.launches``).  A wrapper runs the plain version for a CPU
 tensor and launches the kernel for a CUDA tensor; there is no other route.
 The region geometry is the Shift-AND kernel's
@@ -49,7 +50,8 @@ def rk_params(m: int, base: int) -> tuple[int, int]:
 # ---------------------------------------------------------------------------
 
 _ARGS = [PTR, I64, I64, INT, U32, U32, PTR, INT, PTR]
-_SIGNATURES = {"tpm_rk_candidate_bsums": _ARGS, "tpm_rk_candidate_pmask": _ARGS}
+_SIGNATURES = {"tpm_rk_candidate_bsums": _ARGS, "tpm_rk_candidate_pmask": _ARGS,
+               "tpm_rk_candidate_nib": _ARGS + [PTR]}
 
 
 def _check(words: torch.Tensor, targets: torch.Tensor, m: int,
@@ -77,15 +79,20 @@ def _window_hashes(words, n_lim: int, m: int, base: int):
     return h, torch.arange(text.numel(), device=text.device) <= n_lim
 
 
-def rk_candidate_bsums_plain(words, n_lim: int, targets, m: int,
-                             base: int) -> torch.Tensor:
-    """Plain PyTorch version of ``rk_candidate_bsums`` (same contract): the
-    window hashes by direct sum (``ops/rabin_karp.rk_window_hashes``)."""
+def _candidates(words, n_lim: int, targets, m: int, base: int):
+    """bool[4 Nw]: the starts s <= n_lim whose window hash, by direct sum
+    (``ops/rabin_karp.rk_window_hashes``), equals any target."""
     h, valid = _window_hashes(words, n_lim, m, base)
     cand = torch.zeros_like(h, dtype=torch.bool)
     for p in range(targets.numel()):
         cand |= h == targets[p]
-    cand &= valid
+    return cand & valid
+
+
+def rk_candidate_bsums_plain(words, n_lim: int, targets, m: int,
+                             base: int) -> torch.Tensor:
+    """Plain PyTorch version of ``rk_candidate_bsums`` (same contract)."""
+    cand = _candidates(words, n_lim, targets, m, base)
     return cand.view(-1, swar.BLOCK_BYTES).sum(1, dtype=torch.int32)
 
 
@@ -101,8 +108,10 @@ def rk_candidate_pmask_plain(words, n_lim: int, targets, m: int,
     return pm
 
 
-def _launch(fn: str, words, n_lim: int, targets, m: int, base: int):
-    """Run C entry ``fn`` (K5 or K6) over the region; int32[Nw/128]."""
+def _launch(fn: str, words, n_lim: int, targets, m: int, base: int,
+            *out: torch.Tensor):
+    """Run C entry ``fn`` (K5, K6, or K10b with the nibble plane ``out``)
+    over the region; int32[Nw/128]."""
     B, Bm = rk_params(m, base)
     # uint32 bits as int32: values >= 2**31 move down by 2**32.
     tgt = (targets - ((targets >> 31) << 32)).to(torch.int32).contiguous()
@@ -111,7 +120,7 @@ def _launch(fn: str, words, n_lim: int, targets, m: int, base: int):
     cuda_build.launch(cuda_build.load("rk_roll", _SIGNATURES), fn,
                       words.device, words.data_ptr(), 4 * words.numel(),
                       int(n_lim), m, B, Bm, tgt.data_ptr(), tgt.numel(),
-                      bs.data_ptr())
+                      *(t.data_ptr() for t in out), bs.data_ptr())
     return bs
 
 
@@ -155,5 +164,32 @@ def rk_candidate_pmask(words: torch.Tensor, n_lim: int, targets: torch.Tensor,
     return pm
 
 
+def rk_candidate_nib_plain(words, n_lim: int, targets, m: int, base: int):
+    """Plain PyTorch version of ``rk_candidate_nib`` (same contract)."""
+    cand = _candidates(words, n_lim, targets, m, base)
+    return (swar.pack_nibbles(cand),
+            cand.view(-1, swar.BLOCK_BYTES).sum(1, dtype=torch.int32))
+
+
+def rk_candidate_nib(words: torch.Tensor, n_lim: int, targets: torch.Tensor,
+                     m: int, base: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K10b, the rolling-hash screen with the candidate nibble plane
+    (Rabin-Karp and multi-pattern with ``emission='nib'``):
+    ``rk_candidate_bsums``'s arguments, any k >= 1 targets.  Returns
+    (nib int32[Nw], bs int32[Nw/128]): bit a of nib[w] = the window at
+    byte 4w + a <= n_lim hashes to some target, bs = ``rk_candidate_bsums``.
+    The bits are candidates: the caller verifies them.  Replaces the
+    reference's ``_kernel`` with ``emit='nib'`` and the end-to-start shift
+    of its host wrapper ``rk_candidate_nib``."""
+    _check(words, targets, m, base)
+    if words.device.type == "cpu":
+        return rk_candidate_nib_plain(words, n_lim, targets, m, base)
+    nib = torch.empty_like(words)
+    bs = _launch("tpm_rk_candidate_nib", words, n_lim, targets, m, base, nib)
+    rk_candidate_nib.launches += 1
+    return nib, bs
+
+
 rk_candidate_bsums.launches = 0
 rk_candidate_pmask.launches = 0
+rk_candidate_nib.launches = 0

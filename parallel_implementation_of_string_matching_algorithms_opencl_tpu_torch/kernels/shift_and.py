@@ -7,11 +7,12 @@ is set.  ``B[c]`` has bit j set when ``pattern[j] == c``; one 32-bit word
 holds 32 pattern bytes, and K = ceil(m/32) words with a carry between them
 hold up to ``MAX_SHIFT_AND_PATTERN`` bytes.
 
-One kernel (``csrc/shift_and.cu``), K4 ``kmp_bsums``: the automaton's match
-starts counted per 512-byte block, with a plain PyTorch version in this
-module and a launch counter (``kmp_bsums.launches``).  A wrapper runs the
-plain version for a CPU tensor and launches the kernel for a CUDA tensor;
-there is no other route.
+Two kernels (``csrc/shift_and.cu``, one template): K4 ``kmp_bsums``, the
+automaton's match starts counted per 512-byte block, and K10a ``kmp_nib``,
+the same counts plus the nibble plane of the starts (``emission='nib'``).
+Each has a plain PyTorch version in this module and a launch counter
+(``.launches``).  A wrapper runs the plain version for a CPU tensor and
+launches the kernel for a CUDA tensor; there is no other route.
 """
 
 from __future__ import annotations
@@ -65,7 +66,8 @@ def kernel_region(N: int, m: int, chunk_bytes: int) -> tuple[int, int]:
 # Kernel wrapper
 # ---------------------------------------------------------------------------
 
-_SIGNATURES = {"tpm_kmp_bsums": [PTR, I64, I64, PTR, INT, INT, PTR]}
+_SIGNATURES = {"tpm_kmp_bsums": [PTR, I64, I64, PTR, INT, INT, PTR],
+               "tpm_kmp_nib": [PTR, I64, I64, PTR, INT, INT, PTR, PTR]}
 
 
 def check_region(words: torch.Tensor) -> None:
@@ -109,14 +111,18 @@ def pattern_from_table(bt: torch.Tensor, m: int) -> torch.Tensor:
     return bits.argmax(1).to(torch.uint8)
 
 
-def kmp_bsums_plain(words, n_lim: int, bt, m: int) -> torch.Tensor:
-    """Plain PyTorch version of ``kmp_bsums`` (same contract).  The
-    automaton's hits are exactly the starts where the m bytes the table
-    encodes match, so this counts those starts by shifted compare instead
-    of running the automaton."""
+def _starts(words, n_lim: int, bt, m: int) -> torch.Tensor:
+    """bool[4 Nw]: the starts s <= n_lim where the m bytes that ``bt``
+    encodes match.  The automaton's hits are exactly these, so the plain
+    versions find them by shifted compare instead of running it."""
     text = words.view(torch.uint8)
     hit = naive_ops.naive_start_mask(text, pattern_from_table(bt, m))
-    hit &= torch.arange(text.numel(), device=text.device) <= n_lim
+    return hit & (torch.arange(text.numel(), device=text.device) <= n_lim)
+
+
+def kmp_bsums_plain(words, n_lim: int, bt, m: int) -> torch.Tensor:
+    """Plain PyTorch version of ``kmp_bsums`` (same contract)."""
+    hit = _starts(words, n_lim, bt, m)
     return hit.view(-1, swar.BLOCK_BYTES).sum(1, dtype=torch.int32)
 
 
@@ -145,3 +151,36 @@ def kmp_bsums(words: torch.Tensor, n_lim: int, bt: torch.Tensor,
 
 
 kmp_bsums.launches = 0
+
+
+def kmp_nib_plain(words, n_lim: int, bt, m: int):
+    """Plain PyTorch version of ``kmp_nib`` (same contract)."""
+    hit = _starts(words, n_lim, bt, m)
+    return (swar.pack_nibbles(hit),
+            hit.view(-1, swar.BLOCK_BYTES).sum(1, dtype=torch.int32))
+
+
+def kmp_nib(words: torch.Tensor, n_lim: int, bt: torch.Tensor,
+            m: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K10a, the Shift-AND scan with the nibble plane (KMP with
+    ``emission='nib'``): ``kmp_bsums``'s arguments, K = ceil(m/32) state
+    words of the whole pattern.  Returns (nib int32[Nw], bs int32[Nw/128]):
+    bit a of nib[w] = start at byte 4w + a <= n_lim, bs = ``kmp_bsums``.
+    Replaces the reference's ``_kernel`` with ``emit='nib'`` and the
+    end-to-start shift of its host wrapper ``kmp_nib``, whose nibbles carry no
+    validity (applied downstream there, in the kernel here)."""
+    _check(words, bt, m)
+    if words.device.type == "cpu":
+        return kmp_nib_plain(words, n_lim, bt, m)
+    nib = torch.empty_like(words)
+    bs = torch.empty(words.numel() // swar.BLOCK_WORDS, dtype=torch.int32,
+                     device=words.device)
+    cuda_build.launch(cuda_build.load("shift_and", _SIGNATURES),
+                      "tpm_kmp_nib", words.device, words.data_ptr(),
+                      4 * words.numel(), int(n_lim), bt.data_ptr(),
+                      bt.shape[0], m, nib.data_ptr(), bs.data_ptr())
+    kmp_nib.launches += 1
+    return nib, bs
+
+
+kmp_nib.launches = 0

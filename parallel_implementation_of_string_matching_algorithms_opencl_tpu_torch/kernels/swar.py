@@ -9,15 +9,19 @@ match starting at byte 4w + a satisfies
 where P[a]/M[a] are the pattern placed at byte offset a in a zeroed word
 buffer and its 0xFF byte-occupancy mask.
 
-Three kernels (``csrc/swar.cu``), each with a plain PyTorch version in this
-module and a launch counter (``<wrapper>.launches``):
+Five kernel wrappers (``csrc/swar.cu``), each with a plain PyTorch version
+in this module and a launch counter (``<wrapper>.launches``):
 
 - ``screen_cand_bsums`` (K1): the Boyer-Moore probe screen, candidate words
   counted per 512-byte block;
 - ``naive_nib`` (K2): the exact verify of every start as a nibble plane
   plus per-block popcounts;
 - ``naive_bsums`` (K3): the same exact verify emitting only the per-block
-  match counts (the naive matcher's scan).
+  match counts (the naive matcher's scan);
+- ``screened_nib`` and ``screened_bsums`` (K7, and K8 with the
+  ``bm_probes='table_dyn'`` probes): the probe screen, then the exact
+  verify of the words with a probe hit, with and without the nibble plane.
+  Their results equal ``naive_nib``'s and ``naive_bsums``'s.
 
 A wrapper runs the plain version for a CPU tensor and launches the kernel
 for a CUDA tensor; there is no other route.  All emit block sums in byte
@@ -103,15 +107,17 @@ def probe_indices(M: np.ndarray) -> tuple:
     return tuple(out)
 
 
-def probe_table(pattern: np.ndarray, use_gs: bool = False) -> np.ndarray:
+def probe_table(pattern: np.ndarray, use_gs: bool = False,
+                single: bool = False) -> np.ndarray:
     """int32[4, 2] bad-character-scored probe word indices per alignment,
-    identical to the reference's ``probe_table`` (single=False).
+    identical to the reference's ``probe_table``.
 
     Each full word is scored by the summed bad-character shift of its four
     bytes; ``use_gs`` adds the summed good-suffix shifts.  Words whose
     4-byte value recurs as another 4-gram of the pattern are penalized.
-    The best word wins; its partner is the farthest other word, score as
-    tiebreak."""
+    The best word wins (highest score, then highest index); its partner is
+    the farthest other word, score as tiebreak.  ``single``
+    (bm_probes='table_gs1') keeps the best word alone, repeated."""
     pat = np.asarray(pattern, dtype=np.uint8)
     m = len(pat)
     Mnp = mask_words(m)
@@ -145,7 +151,7 @@ def probe_table(pattern: np.ndarray, use_gs: bool = False) -> np.ndarray:
             scores.append((s, k))
         scores.sort(reverse=True)
         best = scores[0][1]
-        if len(scores) == 1:
+        if single or len(scores) == 1:
             out[a] = (best, best)
         else:
             k2 = max(
@@ -168,10 +174,13 @@ def static_probes_from_table(pr: np.ndarray) -> tuple:
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
+_PROBED = [PTR, I64, I64, PTR, PTR, INT] + [INT] * 8
 _SIGNATURES = {
-    "tpm_screen_cand_bsums": [PTR, I64, I64, PTR, PTR, INT] + [INT] * 8 + [PTR],
+    "tpm_screen_cand_bsums": _PROBED + [PTR],
     "tpm_naive_nib": [PTR, I64, I64, PTR, PTR, INT, PTR, PTR],
     "tpm_naive_bsums": [PTR, I64, I64, PTR, PTR, INT, PTR],
+    "tpm_screened_nib": _PROBED + [PTR, PTR],
+    "tpm_screened_bsums": _PROBED + [PTR],
 }
 
 
@@ -209,6 +218,17 @@ def _shifted(words: torch.Tensor, nw: int):
     return torch.cat([words, words.new_zeros(nw)])
 
 
+def _check_probes(probes, nw: int) -> list:
+    """The kernel's eight probe arguments: per alignment the first and
+    last of one or two word indices in [0, nw)."""
+    if len(probes) != 4 or any(
+        not 1 <= len(ks) <= 2 or not all(0 <= k < nw for k in ks)
+        for ks in probes
+    ):
+        raise ValueError(f"bad probe layout {probes!r} for nw={nw}")
+    return [int(k) for pair in probes for k in (pair[0], pair[-1])]
+
+
 def screen_cand_bsums_plain(words, n_lim: int, P, M, probes) -> torch.Tensor:
     """Plain PyTorch version of ``screen_cand_bsums`` (same contract)."""
     n = words.numel()
@@ -238,16 +258,11 @@ def screen_cand_bsums(words: torch.Tensor, n_lim: int, P: torch.Tensor,
     what bounds it)."""
     _check(words, P, M)
     nw = P.shape[1]
-    if len(probes) != 4 or any(
-        not 1 <= len(ks) <= 2 or not all(0 <= k < nw for k in ks)
-        for ks in probes
-    ):
-        raise ValueError(f"bad probe layout {probes!r} for nw={nw}")
+    ks = _check_probes(probes, nw)
     if words.device.type == "cpu":
         return screen_cand_bsums_plain(words, n_lim, P, M, probes)
     bs = torch.empty(words.numel() // BLOCK_WORDS, dtype=torch.int32,
                      device=words.device)
-    ks = [int(k) for pair in probes for k in (pair[0], pair[-1])]
     _launch("tpm_screen_cand_bsums", words.device, words.data_ptr(),
             words.numel(), int(n_lim), P.data_ptr(), M.data_ptr(), nw, *ks,
             bs.data_ptr())
@@ -329,3 +344,75 @@ def naive_bsums(words: torch.Tensor, n_lim: int, P: torch.Tensor,
 
 
 naive_bsums.launches = 0
+
+
+def screened_nib_plain(words, n_lim: int, P, M, probes):
+    """Plain PyTorch version of ``screened_nib`` (same contract).  The
+    probe screen only decides which words the kernel verifies, and a match
+    passes its own alignment's probes, so this is ``naive_nib_plain``."""
+    _check_probes(probes, P.shape[1])
+    return naive_nib_plain(words, n_lim, P, M)
+
+
+def screened_nib(words: torch.Tensor, n_lim: int, P: torch.Tensor,
+                 M: torch.Tensor, probes) -> tuple[torch.Tensor, torch.Tensor]:
+    """K7 (probes fixed per pattern) and K8 (``bm_probes='table_dyn'``'s
+    probes): the Boyer-Moore probe screen, then the exact verify of every
+    alignment whose probe words compare equal.
+
+    Arguments as ``screen_cand_bsums``; returns ``naive_nib``'s (nib, bs):
+    bit a of nib[w] = match at byte 4w + a <= n_lim, bs = exact matches per
+    512-byte block.  Replaces the reference's ``_screened_kernel`` and
+    ``_screened_dyn_kernel`` with emit_nib=True (csrc/swar.cu notes what
+    bounds it)."""
+    _check(words, P, M)
+    ks = _check_probes(probes, P.shape[1])
+    if words.device.type == "cpu":
+        return screened_nib_plain(words, n_lim, P, M, probes)
+    nib = torch.empty_like(words)
+    bs = torch.empty(words.numel() // BLOCK_WORDS, dtype=torch.int32,
+                     device=words.device)
+    _launch("tpm_screened_nib", words.device, words.data_ptr(), words.numel(),
+            int(n_lim), P.data_ptr(), M.data_ptr(), P.shape[1], *ks,
+            nib.data_ptr(), bs.data_ptr())
+    screened_nib.launches += 1
+    return nib, bs
+
+
+screened_nib.launches = 0
+
+
+def screened_bsums_plain(words, n_lim: int, P, M, probes) -> torch.Tensor:
+    """Plain PyTorch version of ``screened_bsums``: ``screened_nib_plain``'s
+    block sums."""
+    return screened_nib_plain(words, n_lim, P, M, probes)[1]
+
+
+def screened_bsums(words: torch.Tensor, n_lim: int, P: torch.Tensor,
+                   M: torch.Tensor, probes) -> torch.Tensor:
+    """K7/K8 without the nibble plane (Boyer-Moore with bm_screen='fused'
+    or bm_probes='table_dyn' under sparse emission): int32[Nw/128], the
+    exact matches per 512-byte block, equal to ``naive_bsums``.  Replaces
+    the reference's ``_screened_kernel`` and ``_screened_dyn_kernel`` with
+    emit_nib=False (the nibble plane in VMEM scratch)."""
+    _check(words, P, M)
+    ks = _check_probes(probes, P.shape[1])
+    if words.device.type == "cpu":
+        return screened_bsums_plain(words, n_lim, P, M, probes)
+    bs = torch.empty(words.numel() // BLOCK_WORDS, dtype=torch.int32,
+                     device=words.device)
+    _launch("tpm_screened_bsums", words.device, words.data_ptr(),
+            words.numel(), int(n_lim), P.data_ptr(), M.data_ptr(), P.shape[1],
+            *ks, bs.data_ptr())
+    screened_bsums.launches += 1
+    return bs
+
+
+screened_bsums.launches = 0
+
+
+def pack_nibbles(mask: torch.Tensor) -> torch.Tensor:
+    """bool[4N] start mask -> int32[N] nibble plane (bit a of word w = start
+    at byte 4w + a)."""
+    shifts = torch.arange(4, dtype=torch.int32, device=mask.device)
+    return (mask.view(-1, 4).to(torch.int32) << shifts).sum(1, dtype=torch.int32)

@@ -1,18 +1,28 @@
 """The four single-pattern matchers: naive, Rabin-Karp, KMP, Boyer-Moore
 (counterparts of the classes in the JAX ``models/algorithms.py``).
 
-Each runs the same pipeline on a padded text of N bytes:
+Each runs the same pipeline on a padded text of N bytes.  With
+``emission='sparse'`` (the default):
 
 1. a scan kernel over the kernel region [0, Nk) emits per-512-byte-block
-   counts: exact matches (naive, K3 ``swar.naive_bsums``), or candidates
-   that ``extract_region`` verifies and recounts (Boyer-Moore's probe
-   screen K1 ``swar.screen_cand_bsums``, Rabin-Karp's rolling hash K5
+   counts: exact matches (naive, K3 ``swar.naive_bsums``; Boyer-Moore with
+   ``bm_screen='fused'`` or ``bm_probes='table_dyn'``, K7/K8
+   ``swar.screened_bsums``), or candidates that ``extract_region``
+   verifies and recounts (Boyer-Moore's probe screen K1
+   ``swar.screen_cand_bsums``, Rabin-Karp's rolling hash K5
    ``rk_roll.rk_candidate_bsums``, KMP's Shift-AND automaton K4
    ``shift_and.kmp_bsums``, exact for m <= 32 and a prefix screen above);
 2. ``reconstruct.extract_region`` verifies the candidate chunks exactly
    (escalating to the K2 rescan when they are too many);
 3. the tail [cut, N) takes the algorithm's plain mask, merged after the
    region.
+
+With ``emission='nib'`` the scan kernel also writes the nibble plane of
+its starts and step 2 decodes it (``emit.nibble_to_matches``): naive K2
+``swar.naive_nib``, Boyer-Moore K7/K8 ``swar.screened_nib``, KMP K10a
+``shift_and.kmp_nib`` (the whole pattern, m <= 256).  Rabin-Karp's plane
+(K10b ``rk_roll.rk_candidate_nib``) holds hash candidates, whose windows
+``ops/rabin_karp.verify_region`` verifies.
 
 Texts shorter than one kernel tile, and patterns a kernel does not take,
 take the algorithm's plain mask (``_mask``) over the whole text.
@@ -79,6 +89,15 @@ class _RegionMatcher(Matcher):
     def _probe_layout(self):
         return None
 
+    def _nib_and_tail(self, nib, bs, n: int, cut: int, tail_mask):
+        """(count, offsets, overflow) from the region's exact nibble plane
+        ``nib`` and block sums ``bs`` (validity min(n-m, cut-1) applied in
+        the kernel) and the tail's start mask over [cut, N)."""
+        cfg = self.config
+        c1, o1, v1 = emit.nibble_to_matches(nib, bs, cfg.capacity)
+        return emit.merge_tail(c1, o1, v1, cut, n, self.m, cfg.capacity,
+                               tail_mask)
+
     def _region_and_tail(self, bs, text, n: int, cut: int, tail_mask):
         """(count, offsets, overflow) from the region's block sums ``bs``
         and the tail's start mask over [cut, N)."""
@@ -96,7 +115,8 @@ class _RegionMatcher(Matcher):
 
 @register_matcher
 class NaiveMatcher(_RegionMatcher):
-    """Exact verify of every start (K3), offsets by the chunk gather."""
+    """Exact verify of every start: K3 with offsets by the chunk gather, or
+    K2's nibble plane under ``emission='nib'``."""
 
     name = "naive"
 
@@ -115,15 +135,20 @@ class NaiveMatcher(_RegionMatcher):
         if Nk == 0:
             return None
         limit = min(n - m, cut - 1)
-        bs = swar.naive_bsums(text.view(torch.int32)[: Nk // 4], limit,
-                              self.dev_tables["swar_p"], self.swar_m)
+        region = text.view(torch.int32)[: Nk // 4]
+        P = self.dev_tables["swar_p"]
         tail = naive_ops.naive_start_mask(text[cut:], self.pattern_dev)
+        if self.config.emission == "nib":
+            nib, bs = swar.naive_nib(region, limit, P, self.swar_m)
+            return self._nib_and_tail(nib, bs, n, cut, tail)
+        bs = swar.naive_bsums(region, limit, P, self.swar_m)
         return self._region_and_tail(bs, text, n, cut, tail)
 
 
 @register_matcher
 class RabinKarpMatcher(_RegionMatcher):
-    """Rolling hash mod 2**32 as a candidate screen (K5) + exact verify."""
+    """Rolling hash mod 2**32 as a candidate screen (K5, or K10b's
+    candidate plane under ``emission='nib'``) + exact verify."""
 
     name = "rabin_karp"
 
@@ -153,14 +178,25 @@ class RabinKarpMatcher(_RegionMatcher):
                                           self.config.pallas_chunk_bytes)
         if Nk == 0:
             return None
-        base = self.config.rk_base
+        cfg = self.config
+        base = int(tables.RK_BASE) if cfg.rk_base is None else cfg.rk_base
+        region = text.view(torch.int32)[: Nk // 4]
+        limit = min(n - m, cut - 1)
+        target = self.dev_tables["pattern_hash"].reshape(1)
+        tail = self._mask(text[cut:])
+        if cfg.emission == "nib":
+            # The count comes from the verify, never from bs: hash hits are
+            # candidates.
+            nib, bs = rk_roll.rk_candidate_nib(region, limit, target, m, base)
+            n_cand, cand, _ = emit.nibble_to_matches(nib, bs,
+                                                     cfg.verify_capacity)
+            c1, o1, v1 = rk_ops.verify_region(
+                text, self.pattern_dev, cand, n_cand, limit,
+                cfg.verify_capacity, cfg.capacity)
+            return emit.merge_tail(c1, o1, v1, cut, n, m, cfg.capacity, tail)
         # Hash hits are candidates: extract_region verifies and recounts.
-        bs = rk_roll.rk_candidate_bsums(
-            text.view(torch.int32)[: Nk // 4], min(n - m, cut - 1),
-            self.dev_tables["pattern_hash"].reshape(1), m,
-            int(tables.RK_BASE) if base is None else base,
-        )
-        return self._region_and_tail(bs, text, n, cut, self._mask(text[cut:]))
+        bs = rk_roll.rk_candidate_bsums(region, limit, target, m, base)
+        return self._region_and_tail(bs, text, n, cut, tail)
 
 
 @register_matcher
@@ -176,6 +212,10 @@ class KMPMatcher(_RegionMatcher):
       n - m, which alone makes the result exact near the end of the text.
     - 32 < m <= 256 with ``kmp_long='ripple'``: the K-word automaton of the
       whole pattern.
+    - ``emission='nib'``, m <= 256: the K-word automaton of the whole
+      pattern with its nibble plane (K10a), whatever ``kmp_long`` says: no
+      verify follows a nibble plane, so a prefix screen would count
+      prefix-only starts.  m > 256 takes the dense DFA over the whole text.
     """
 
     name = "kmp"
@@ -199,6 +239,7 @@ class KMPMatcher(_RegionMatcher):
 
     def _screen_mode(self) -> bool:
         return (self.m > self.SCREEN_M and self.config.kmp_long == "screen"
+                and self.config.emission == "sparse"
                 and "sa_bt32" in self.dev_tables)
 
     def _mask(self, text: torch.Tensor) -> torch.Tensor:
@@ -217,48 +258,72 @@ class KMPMatcher(_RegionMatcher):
                                           self.config.pallas_chunk_bytes)
         if Nk == 0:
             return None
+        region = text.view(torch.int32)[: Nk // 4]
+        tail = self._mask(text[cut:])
+        if self.config.emission == "nib":  # mk == m: never the screen
+            nib, bs = shift_and.kmp_nib(region, min(n - m, cut - 1), bt, m)
+            return self._nib_and_tail(nib, bs, n, cut, tail)
         # The kernel's own clamp, min(n, Nk) - mk: for the screen it counts
         # prefix starts in (n - m, n - 32] too, which extract_region's
         # limit min(n - m, cut - 1) rejects.
-        bs = shift_and.kmp_bsums(text.view(torch.int32)[: Nk // 4],
-                                 min(n, Nk) - mk, bt, mk)
-        return self._region_and_tail(bs, text, n, cut, self._mask(text[cut:]))
+        bs = shift_and.kmp_bsums(region, min(n, Nk) - mk, bt, mk)
+        return self._region_and_tail(bs, text, n, cut, tail)
 
 
 @register_matcher
 class BoyerMooreMatcher(_RegionMatcher):
-    """Bad-char + good-suffix Boyer-Moore, as probe screen (K1) + exact
-    verify.  The probes are the pattern words that Boyer-Moore's
-    bad-character and good-suffix shifts score as rarest: the vectorized
-    form of BM's skip rule."""
+    """Bad-char + good-suffix Boyer-Moore, as probe screen + exact verify.
+    The probes are the pattern words that Boyer-Moore's bad-character and
+    good-suffix shifts score as rarest: the vectorized form of BM's skip
+    rule.
+
+    - sparse, ``bm_screen='cand'``: K1 counts candidate words and
+      ``extract_region`` verifies them (the default);
+    - sparse, ``bm_screen='fused'`` or ``bm_probes='table_dyn'``: K7/K8
+      verify the words with a probe hit in the kernel, ``extract_region``
+      gathers the offsets from the exact block counts;
+    - ``emission='nib'``: K7/K8 with the nibble plane, decoded directly.
+
+    ``table_dyn`` takes its probes from ``swar_pr`` (the reference's
+    runtime probe table); the other probe modes from the layout stamped
+    into the config, or the positional probes for ``'static'``."""
 
     name = "boyer_moore"
 
     @classmethod
     def _specialize_config(cls, config: MatchConfig,
                            pat: np.ndarray) -> MatchConfig:
-        if config.bm_probes in ("table", "table_gs"):
+        if config.bm_probes in ("table", "table_gs", "table_gs1"):
             # Always recompute: a config recycled from another pattern's
             # matcher would carry that pattern's layout.
             layout = swar.static_probes_from_table(
-                swar.probe_table(pat, use_gs=config.bm_probes == "table_gs")
+                swar.probe_table(
+                    pat, use_gs=config.bm_probes in ("table_gs", "table_gs1"),
+                    single=config.bm_probes == "table_gs1",
+                )
             )
             if layout != config.bm_probe_layout:
                 return config.replace(bm_probe_layout=layout)
         return config
 
     def _probe_layout(self):
+        if self.config.bm_probes == "table_dyn":
+            return swar.static_probes_from_table(self.tables["swar_pr"])
         layout = self.config.bm_probe_layout
         if layout is None:  # bm_probes='static': positional probes
             layout = swar.probe_indices(swar.mask_words(self.m))
         return layout
 
     def _precompute(self, pat: np.ndarray) -> dict:
-        return {
+        t = {
             "bad_char": tables.bm_bad_char(pat),
             "good_suffix": tables.bm_good_suffix(pat),
             **_swar_tables(pat),
         }
+        if self.config.bm_probes == "table_dyn":
+            # The reference's runtime probe table (bad-character scores).
+            t["swar_pr"] = swar.probe_table(pat)
+        return t
 
     def _mask(self, text: torch.Tensor) -> torch.Tensor:
         return naive_ops.naive_start_mask(text, self.pattern_dev)
@@ -271,11 +336,17 @@ class BoyerMooreMatcher(_RegionMatcher):
                                      self.config.pallas_chunk_bytes)
         if Nk == 0:
             return None
-        t = self.dev_tables
-        # The region's largest valid start is both K1's clamp and
+        cfg, t = self.config, self.dev_tables
+        # The region's largest valid start is the kernels' clamp and
         # extract_region's limit.
-        bs = swar.screen_cand_bsums(text.view(torch.int32)[: Nk // 4],
-                                    min(n - m, cut - 1), t["swar_p"],
-                                    self.swar_m, t["probes"])
+        args = (text.view(torch.int32)[: Nk // 4], min(n - m, cut - 1),
+                t["swar_p"], self.swar_m, t["probes"])
         tail = naive_ops.naive_start_mask(text[cut:], self.pattern_dev)
+        if cfg.emission == "nib":
+            nib, bs = swar.screened_nib(*args)
+            return self._nib_and_tail(nib, bs, n, cut, tail)
+        if cfg.bm_screen == "fused" or cfg.bm_probes == "table_dyn":
+            bs = swar.screened_bsums(*args)
+        else:
+            bs = swar.screen_cand_bsums(*args)
         return self._region_and_tail(bs, text, n, cut, tail)

@@ -12,8 +12,14 @@ k patterns of one length share one rolling-hash pass over the kernel region
   block;
 - ``reconstruct.extract_region_multi`` verifies and recounts per pattern
   (the K2 rescan for a pattern with more candidate chunks than the gather
-  width), and the tail [cut, N) takes ``ops/rabin_karp.rk_multi_start_masks``,
-  merged per pattern.
+  width);
+- ``emission='nib'``: K10b ``rk_roll.rk_candidate_nib`` writes one
+  candidate plane over all k hashes, its first ``verify_capacity``
+  candidates are decoded once, and each pattern verifies them at their
+  windows (``ops/rabin_karp.verify_region``; an exact compare of the region
+  when there are more);
+- the tail [cut, N) takes ``ops/rabin_karp.rk_multi_start_masks``, merged
+  per pattern.
 
 Texts shorter than one kernel tile, m = 1 and m > 509 take
 ``rk_multi_start_masks`` over the whole text.  ``api.match`` groups a list
@@ -99,15 +105,28 @@ class RabinKarpMultiMatcher:
         base = int(tables.RK_BASE) if cfg.rk_base is None else cfg.rk_base
         words = text.view(torch.int32)
         limit = min(n - m, cut - 1)
-        pmask = (cfg.multi_gather == "pselect"
-                 and self.k <= rk_roll.MAX_PMASK_PATTERNS)
-        screen = (rk_roll.rk_candidate_pmask if pmask
-                  else rk_roll.rk_candidate_bsums)
-        bs = screen(words[: Nk // 4], limit, self.dev_tables["hashes"], m, base)
-        regions = reconstruct.extract_region_multi(
-            bs, reconstruct.full_words2d(words), self.dev_tables["swar_ps"],
-            self.swar_m, m, limit, cfg.capacity, pmask,
-        )
+        hashes = self.dev_tables["hashes"]
+        if cfg.emission == "nib":
+            nib, bs = rk_roll.rk_candidate_nib(words[: Nk // 4], limit, hashes,
+                                               m, base)
+            n_cand, cand, _ = emit.nibble_to_matches(nib, bs,
+                                                     cfg.verify_capacity)
+            regions = [
+                rk_ops.verify_region(text, pat, cand, n_cand, limit,
+                                     cfg.verify_capacity, cfg.capacity)
+                for pat in self.patterns_dev
+            ]
+        else:
+            pmask = (cfg.multi_gather == "pselect"
+                     and self.k <= rk_roll.MAX_PMASK_PATTERNS)
+            screen = (rk_roll.rk_candidate_pmask if pmask
+                      else rk_roll.rk_candidate_bsums)
+            bs = screen(words[: Nk // 4], limit, hashes, m, base)
+            regions = reconstruct.extract_region_multi(
+                bs, reconstruct.full_words2d(words),
+                self.dev_tables["swar_ps"], self.swar_m, m, limit,
+                cfg.capacity, pmask,
+            )
         return [
             emit.merge_tail(*region, cut, n, m, cfg.capacity, tail)
             for region, tail in zip(regions, self._masks(text[cut:]))

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from . import extract
+
 
 def mask_to_matches_sorted(mask: torch.Tensor, capacity: int):
     """(count, offsets[:capacity], overflow) of a bool start mask.  One
@@ -48,3 +50,19 @@ def merge_tail(c1, o1, v1, cut: int, n: int, m: int, capacity: int,
         tail_valid, min(capacity, tail_mask.shape[0])
     )
     return merge_region_matches(c1, o1, v1, c2, o2, v2, capacity, cut)
+
+
+def nibble_to_matches(nib: torch.Tensor, bs: torch.Tensor, capacity: int):
+    """(count, offsets[:capacity], overflow) of a kernel's nibble plane.
+
+    ``nib``: int32[Nw], bit a of word w = a set position at byte 4w + a,
+    with validity already applied in the kernel; ``bs``: int32[Nw/128], the
+    popcount of each 512-byte block.  The count is ``bs.sum()``; only the
+    blocks that hold one of the first ``capacity`` positions are decoded,
+    so the plane is never expanded whole.  Counterpart of the reference's
+    ``nibble_to_matches`` with kernel block sums."""
+    count = int(bs.sum())
+    before = torch.cumsum(bs, 0) - bs
+    blocks = extract.sorted_nonzero_ids((bs > 0) & (before < capacity))
+    pos = extract.nib_positions(nib.view(-1, 128)[blocks], blocks * 512)
+    return count, pos[:capacity], count > capacity

@@ -43,25 +43,53 @@ def rk_window_hashes(text: torch.Tensor, powers: torch.Tensor) -> torch.Tensor:
     return h & MASK32
 
 
+def verify_positions(text: torch.Tensor, pattern: torch.Tensor,
+                     pos: torch.Tensor,
+                     verify_capacity: int = DEFAULT_VERIFY_CAPACITY):
+    """The candidate starts ``pos`` (int64, ascending) at which ``pattern``
+    matches ``text``, in order.  Up to ``verify_capacity`` candidates are
+    verified by a gathered window compare; more take a full shifted
+    compare, which bounds the gather's memory as the reference's fallback
+    does.  Windows read zeros past the end."""
+    n_pos = text.shape[0]
+    m = pattern.shape[0]
+    if pos.numel() > min(verify_capacity, n_pos):
+        return pos[naive_start_mask(text, pattern)[pos]]
+    padded = torch.cat([text, text.new_zeros(m)])
+    win = padded[pos[:, None] + torch.arange(m, device=text.device)]
+    return pos[(win == pattern).all(1)]
+
+
 def verify_candidates(text: torch.Tensor, pattern: torch.Tensor,
                       cand: torch.Tensor,
                       verify_capacity: int = DEFAULT_VERIFY_CAPACITY):
-    """Exact start mask restricted to the candidates ``cand`` (bool[N]).
-    Up to ``verify_capacity`` candidates are verified by a gathered window
-    compare; more take a full shifted compare, which bounds the gather's
-    memory as the reference's fallback does.  Windows read zeros past the
-    end."""
-    n_pos = text.shape[0]
-    m = pattern.shape[0]
+    """Exact start mask restricted to the candidates ``cand`` (bool[N]),
+    by ``verify_positions``."""
     idx = torch.nonzero(cand).flatten()
-    if idx.numel() > min(verify_capacity, n_pos):
-        return cand & naive_start_mask(text, pattern)
-    padded = torch.cat([text, text.new_zeros(m)])
-    win = padded[idx[:, None] + torch.arange(m, device=text.device)]
-    ok = (win == pattern).all(1)
-    out = torch.zeros(n_pos, dtype=torch.bool, device=text.device)
-    out[idx[ok]] = True
+    out = torch.zeros(text.shape[0], dtype=torch.bool, device=text.device)
+    out[verify_positions(text, pattern, idx, verify_capacity)] = True
     return out
+
+
+def verify_region(text: torch.Tensor, pattern: torch.Tensor,
+                  cand: torch.Tensor, n_cand: int, limit: int,
+                  verify_capacity: int, capacity: int):
+    """(count, offsets[:capacity], overflow) of the matches that start in
+    [0, limit] of ``text``, from the region's ``n_cand`` hash candidates,
+    of which ``cand`` holds the first min(n_cand, verify_capacity)
+    ascending (the ``emission='nib'`` route of the reference's
+    ``_verify_region``).  Up to ``verify_capacity`` candidates are verified
+    at their windows; more take an exact shifted compare of the region
+    clamped to ``limit``, so the count is exact either way."""
+    m = pattern.shape[0]
+    if n_cand > verify_capacity:
+        head = max(limit + 1, 0)
+        mask = naive_start_mask(text[: head + m - 1], pattern)[:head]
+        pos = torch.nonzero(mask).flatten()
+    else:
+        pos = verify_positions(text, pattern, cand, verify_capacity)
+    count = pos.numel()
+    return count, pos[:capacity], count > capacity
 
 
 def rk_start_mask(text: torch.Tensor, pattern: torch.Tensor,

@@ -25,7 +25,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import swar
-from . import extract
+from . import emit, extract
 
 # Gather width in 4 KiB chunks, by text size class (the reference's
 # selector constants, same names and values): a region with more candidate
@@ -115,8 +115,4 @@ def _dense(nb: int, x2d, P, M, limit: int, capacity: int):
     of every position, then decode only the blocks that hold one of the
     first ``capacity`` matches."""
     nib, bs2 = swar.naive_nib(x2d.view(-1)[: nb * 128], limit, P, M)
-    count = int(bs2.sum())
-    before = torch.cumsum(bs2, 0) - bs2
-    blocks = extract.sorted_nonzero_ids((bs2 > 0) & (before < capacity))
-    pos = extract.nib_positions(nib.view(-1, 128)[blocks], blocks * 512)
-    return count, pos[:capacity], count > capacity
+    return emit.nibble_to_matches(nib, bs2, capacity)

@@ -11,27 +11,43 @@ from __future__ import annotations
 
 import dataclasses
 
-# Boyer-Moore probe selections whose screen is the candidate kernel with
-# probes fixed per pattern.  'table_gs' (default) scores probe words by
+# Boyer-Moore probe selections.  'table_gs' (default) scores probe words by
 # bad-character plus good-suffix shift, 'table' by bad-character shift alone,
-# 'static' takes the first and last full pattern words.
-PORTED_PROBES = ("table_gs", "table", "static")
-# KMP execution for m > 32: 'screen' runs the one-word automaton of
-# pattern[:32] as a candidate screen, 'ripple' the K-word automaton of the
-# whole pattern (m <= 256).
+# 'table_gs1' keeps only the best 'table_gs' word per alignment (one probe,
+# a weaker screen), 'static' takes the first and last full pattern words.
+# These fix the probes per pattern and screen with K1 (sparse) or K7.
+# 'table_dyn' takes the bad-character-scored pair as the reference's
+# runtime probes and always runs the screen-then-verify kernel (K8, the
+# same CUDA kernel as K7: a runtime probe index costs nothing here).
+PORTED_PROBES = ("table_gs", "table", "static", "table_dyn", "table_gs1")
+# Boyer-Moore screen execution under sparse emission: 'cand' counts probe
+# candidates per block (K1) and extract_region verifies them; 'fused'
+# verifies every word with a probe hit in the kernel (K7) and extract_region
+# verifies again from the exact block counts.
+BM_SCREEN = ("cand", "fused")
+# Offset emission: 'sparse' kernels emit per-512-byte block counts and the
+# offsets come from verifying gathered candidate chunks
+# (ops/reconstruct.extract_region); 'nib' kernels also write the full
+# nibble plane (bit a of int32 word w = a start at byte 4w + a) and the
+# offsets are decoded from the blocks that hold them
+# (ops/emit.nibble_to_matches).
+EMISSION = ("sparse", "nib")
+# KMP execution for m > 32 under sparse emission: 'screen' runs the
+# one-word automaton of pattern[:32] as a candidate screen, 'ripple' the
+# K-word automaton of the whole pattern (m <= 256).  'nib' always runs the
+# K-word automaton (m <= 256): no verify follows a nibble plane.
 KMP_LONG = ("screen", "ripple")
-# Multi-pattern candidate extraction: 'pselect' screens with per-block
-# pattern-hit masks (K6, k <= 31) and verifies each block only against the
-# patterns flagged in it; 'blocks' screens with candidate counts over all
-# k targets (K5) and verifies every candidate block against every pattern.
-# k > 31 always takes 'blocks'.
+# Multi-pattern candidate extraction under sparse emission: 'pselect'
+# screens with per-block pattern-hit masks (K6, k <= 31) and verifies each
+# block only against the patterns flagged in it; 'blocks' screens with
+# candidate counts over all k targets (K5) and verifies every candidate
+# block against every pattern.  k > 31 always takes 'blocks'.  Under 'nib'
+# one candidate plane over all k targets (K10b) feeds every pattern's
+# verify.
 MULTI_GATHER = ("pselect", "blocks")
 # Reference modes not ported yet (ROADMAP.md, Queue 2).
 UNPORTED = {
     "bm_variant": ("cursor",),
-    "bm_screen": ("fused",),
-    "emission": ("nib",),
-    "bm_probes": ("table_dyn", "table_gs1"),
     "multi_gather": ("groups",),
 }
 
@@ -56,8 +72,7 @@ class MatchConfig:
     bm_probe_layout: tuple | None = None
     # 'filtered': probe screen + exact verify of the candidates.
     bm_variant: str = "filtered"
-    # 'cand': the screen kernel emits candidate block sums, verification
-    # happens in ops/reconstruct.extract_region.
+    # Boyer-Moore screen execution under sparse emission (see BM_SCREEN).
     bm_screen: str = "cand"
     # Pad text length to a multiple of this (4096 = one 1024-word row, so
     # the (N/4096, 1024) int32 word view always exists).
@@ -68,8 +83,7 @@ class MatchConfig:
     # the KMP and Rabin-Karp kernels, so one config puts the kernel/tail
     # seam at the same byte in both packages.
     pallas_chunk_bytes: int = 16384
-    # 'sparse': the kernels emit per-512-byte block sums and offsets are
-    # reconstructed from gathered candidate chunks.
+    # Offset emission (see EMISSION).
     emission: str = "sparse"
     # Rabin-Karp base (an odd uint32); None = ops.tables.RK_BASE.
     rk_base: int | None = None
@@ -110,9 +124,11 @@ class MatchConfig:
             raise ValueError(f"unknown bm_probes {self.bm_probes!r}")
         if self.multi_gather not in MULTI_GATHER:
             raise ValueError(f"unknown multi_gather {self.multi_gather!r}")
-        for field, ok in (("bm_variant", "filtered"), ("bm_screen", "cand"),
-                          ("emission", "sparse")):
-            if getattr(self, field) != ok:
+        if self.bm_variant != "filtered":
+            raise ValueError(f"unknown bm_variant {self.bm_variant!r}")
+        for field, values in (("bm_screen", BM_SCREEN),
+                              ("emission", EMISSION)):
+            if getattr(self, field) not in values:
                 raise ValueError(f"unknown {field} {getattr(self, field)!r}")
 
     def replace(self, **kw) -> "MatchConfig":

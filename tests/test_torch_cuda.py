@@ -1,6 +1,7 @@
-"""PyTorch port on the card: the CUDA kernels (K1-K6) against their plain
-versions and ``match()`` of every algorithm, and of pattern lists, against
-the oracle.  Every test here is marked ``cuda`` and
+"""PyTorch port on the card: the CUDA kernels (K1-K8, K10a, K10b) against
+their plain versions and against the ported kernel with the same answer,
+and ``match()`` of every algorithm, of every ``emission``, Boyer-Moore
+screen and probe mode, and of pattern lists, against the oracle.  Every test here is marked ``cuda`` and
 skips without a GPU.
 
 This file imports neither jax nor the JAX package, so it also runs on a
@@ -255,3 +256,124 @@ def test_multi_match_end_to_end(mode, cuda_device):
     assert rk_roll.rk_candidate_bsums.launches == k5 + (not pselect)
     mm = RabinKarpMultiMatcher(pats, cfg, device=cuda_device)
     assert [c for c, _, _ in mm.run(mm.patterns_dev.new_zeros(TILE * 4), 0)] == [0] * k
+
+
+@pytest.mark.parametrize("pat", PATTERNS, ids=lambda p: f"m{len(p)}")
+@pytest.mark.parametrize("n", [3 * TILE + 1234, 4 * TILE], ids=["n<Nk", "n=Nk"])
+def test_nib_kernels_bit_exact(pat, n, cuda_device):
+    """K7/K8 (``screened_nib``/``screened_bsums``, with the 'table_gs' and
+    the 'table_dyn' probes), K10a (``kmp_nib``, m <= 256) and K10b
+    (``rk_candidate_nib``, 2 <= m <= 509) equal their plain versions
+    (tolerance 0), one launch per call; K7/K8 equal K2/K3, K10a equals K2
+    and K4, K10b's counts equal K5's and its plane holds every true start."""
+    words, limit, P, M = _region(n, pat, cuda_device)
+    m = len(pat)
+    u = _u8(pat)
+    nib2, bs2 = swar.naive_nib(words, limit, P, M)
+    bs3 = swar.naive_bsums(words, limit, P, M)
+    for table in (swar.probe_table(u, use_gs=True), swar.probe_table(u)):
+        probes = swar.static_probes_from_table(table)
+        k7, k7b = swar.screened_nib.launches, swar.screened_bsums.launches
+        nib, bs = swar.screened_nib(words, limit, P, M, probes)
+        bsb = swar.screened_bsums(words, limit, P, M, probes)
+        torch.cuda.synchronize()
+        assert (swar.screened_nib.launches, swar.screened_bsums.launches) == (k7 + 1, k7b + 1)
+        nib_p, bs_p = swar.screened_nib_plain(words, limit, P, M, probes)
+        assert torch.equal(nib, nib_p) and torch.equal(bs, bs_p)
+        assert torch.equal(bsb, swar.screened_bsums_plain(words, limit, P, M, probes))
+        assert torch.equal(nib, nib2) and torch.equal(bs, bs2) and torch.equal(bsb, bs3)
+    if shift_and.shift_and_supported(m):
+        bt = torch.from_numpy(shift_and.b_table(u)).to(cuda_device)
+        k10 = shift_and.kmp_nib.launches
+        nib, bs = shift_and.kmp_nib(words, limit, bt, m)
+        torch.cuda.synchronize()
+        assert shift_and.kmp_nib.launches == k10 + 1
+        nib_p, bs_p = shift_and.kmp_nib_plain(words, limit, bt, m)
+        assert torch.equal(nib, nib_p) and torch.equal(bs, bs_p)
+        assert torch.equal(nib, nib2) and torch.equal(bs, bs2)
+        assert torch.equal(bs, shift_and.kmp_bsums(words, limit, bt, m))
+    if rk_roll.rk_roll_supported(m):
+        base = int(tables.RK_BASE)
+        tgt = torch.tensor([int(tables.rk_hash(u))], device=cuda_device)
+        k10 = rk_roll.rk_candidate_nib.launches
+        nib, bs = rk_roll.rk_candidate_nib(words, limit, tgt, m, base)
+        torch.cuda.synchronize()
+        assert rk_roll.rk_candidate_nib.launches == k10 + 1
+        nib_p, bs_p = rk_roll.rk_candidate_nib_plain(words, limit, tgt, m, base)
+        assert torch.equal(nib, nib_p) and torch.equal(bs, bs_p)
+        assert torch.equal(bs, rk_roll.rk_candidate_bsums(words, limit, tgt, m, base))
+        assert torch.equal(nib & nib2, nib2)
+
+
+@pytest.mark.parametrize("k", [1, 8, 40])
+def test_rk_nib_kernel_k_targets(k, cuda_device):
+    """K10b with k targets equals its plain version and K5 over the same
+    targets; each pattern's true starts are among its candidates."""
+    n = 3 * TILE + 1234
+    text = gen_english(n, seed=2000 + k)
+    pats = [text[7919 * i + 11 : 7919 * i + 27] for i in range(k)]
+    words, limit, _, _ = _region(n, pats[-1], cuda_device)
+    base = int(tables.RK_BASE)
+    c = tables.rk_constants(16, base)
+    tgt = torch.tensor([int(tables.rk_hash(_u8(p), c)) for p in pats],
+                       device=cuda_device)
+    nib, bs = rk_roll.rk_candidate_nib(words, limit, tgt, 16, base)
+    nib_p, bs_p = rk_roll.rk_candidate_nib_plain(words, limit, tgt, 16, base)
+    assert torch.equal(nib, nib_p) and torch.equal(bs, bs_p)
+    assert torch.equal(bs, rk_roll.rk_candidate_bsums(words, limit, tgt, 16, base))
+    for p in pats:
+        P, M = (torch.from_numpy(a).to(cuda_device) for a in swar.pattern_words(_u8(p)))
+        exact = swar.naive_nib(words, limit, P, M)[0]
+        assert torch.equal(nib & exact, exact)
+
+
+NIB_ROUTES = {  # route: (config overrides, algo, the kernel it launches)
+    "naive nib": ({"emission": "nib"}, "naive", swar.naive_nib),
+    "kmp nib": ({"emission": "nib"}, "kmp", shift_and.kmp_nib),
+    "rk nib": ({"emission": "nib"}, "rabin_karp", rk_roll.rk_candidate_nib),
+    "bm nib": ({"emission": "nib"}, "boyer_moore", swar.screened_nib),
+    "bm table_dyn nib": ({"emission": "nib", "bm_probes": "table_dyn"},
+                         "boyer_moore", swar.screened_nib),
+    "bm fused": ({"bm_screen": "fused"}, "boyer_moore", swar.screened_bsums),
+    "bm table_dyn": ({"bm_probes": "table_dyn"}, "boyer_moore",
+                     swar.screened_bsums),
+    "bm table_gs1": ({"bm_probes": "table_gs1"}, "boyer_moore",
+                     swar.screen_cand_bsums),
+}
+
+
+@pytest.mark.parametrize("route", list(NIB_ROUTES))
+def test_opt_in_routes_end_to_end(route, cuda_device):
+    """match() of each opt-in route on 4 MiB: exact against the oracle, one
+    launch of its kernel per call (KMP's m = 300 and Rabin-Karp's m = 600
+    take their plain masks); drain complete."""
+    kw, algo, kernel = NIB_ROUTES[route]
+    text = bytes(gen_english(4 << 20, seed=24))
+    cfg = MatchConfig(capacity=4096, verify_capacity=4096, **kw)
+    for pat in (b"quick brown fox ", b"e ", text[1000:1064], text[5000:5256],
+                text[6000:6300], text[7000:7509], text[8000:8600]):
+        m = len(pat)
+        runs = not ((algo == "kmp" and m > 256) or m > 509)
+        before = kernel.launches
+        r = match(text, pat, algo=algo, config=cfg)
+        want = find_all(text, pat)
+        assert r.count == len(want) and r.offsets_list() == want[:4096], m
+        assert kernel.launches == before + runs, m
+    r = match(text, b"the ", algo=algo, config=cfg, drain=True)
+    assert r.offsets_list() == find_all(text, b"the ")
+
+
+@pytest.mark.parametrize("k", [8, 40])
+def test_multi_nib_end_to_end(k, cuda_device):
+    """A pattern list under emission='nib' on 4 MiB: every result exact
+    against the oracle, K10b launched once for the group."""
+    text = bytes(gen_english(4 << 20, seed=25))
+    pats = [text[(i * 524287) % (len(text) - 16):][:16] for i in range(k - 1)]
+    pats.append(b"\x00 never here! \xfe\xff")
+    cfg = MatchConfig(capacity=4096, emission="nib")
+    before = rk_roll.rk_candidate_nib.launches
+    rs = match(text, pats, algo="rabin_karp", config=cfg)
+    for p, r in zip(pats, rs):
+        want = find_all(text, p)
+        assert r.count == len(want) and r.offsets_list() == want[:4096], p
+    assert rk_roll.rk_candidate_nib.launches == before + 1

@@ -81,13 +81,23 @@ def test_pattern_list_and_unported_algorithms_raise():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("bm_variant", "cursor"), ("bm_screen", "fused"), ("emission", "nib"),
-    ("bm_probes", "table_dyn"), ("bm_probes", "table_gs1"),
-    ("multi_gather", "groups"),
+    ("bm_variant", "cursor"), ("multi_gather", "groups"),
 ])
 def test_unported_modes_raise(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         MatchConfig(**{field: value})
+
+
+@pytest.mark.parametrize("field,value", [
+    ("bm_screen", "fused"), ("emission", "nib"),
+    ("bm_probes", "table_dyn"), ("bm_probes", "table_gs1"),
+])
+def test_ported_opt_in_modes_run(field, value):
+    """The opt-in modes construct and match a short text on the CPU."""
+    cfg = MatchConfig(**{field: value})
+    assert getattr(cfg, field) == value
+    r = match(b"abcab ab", b"ab", config=cfg, device="cpu")
+    assert r.offsets_list() == [0, 3, 6] and r.count == 3
 
 
 @pytest.mark.parametrize("kw", [

@@ -35,19 +35,33 @@ source, in parallel), then:
     pattern, 64 and 256: K = 1, 2, 8) against K2 and, for m <= 32, K4, and
     K10b ``rk_candidate_nib`` (k=1 at the corpus pattern and m=509, k=8)
     against K5, each true start among its candidates;
+    K9 (``kmp_bsums`` / ``kmp_nib`` with the composed-4 step at m = 5, 16,
+    32, 33, 64 and 256, and with the compare-B lookup, per byte and
+    composed, at m = 5, 16 and 32) against their plain versions and the
+    per-byte K4 / K10a on the same four texts; K10c ``rk_candidate_bmask``
+    (k=1 m=16, config 2's k=8 m=16, k=64 m=12) against its plain version
+    and K5, each true start's group set;
 (g) drives the opt-in routes through ``match()``: every algorithm with
     ``emission='nib'`` on the three 256 MiB corpora (oracle), KMP at m=64
     and 256 and Rabin-Karp at m=509, Boyer-Moore with ``bm_screen='fused'``,
     ``bm_probes='table_dyn'`` and ``'table_gs1'`` under sparse emission,
     the dense text under 'nib' for every algorithm and drained, and
-    BASELINE config 2 at 1 GB under 'nib' (numpy reference);
-(e) times every kernel and its plain version with CUDA events, ``match``
+    BASELINE config 2 at 1 GB under 'nib' (numpy reference); then
+    ``multi_gather='groups'`` (config 2 at 1 GB, and at 256 MiB k=64, a
+    mixed-length list and m=40, which takes 'blocks'), KMP with
+    ``shift_and.STEP_PATH = "composed"`` (three corpora, m = corpus pattern,
+    64, 256, sparse and 'nib'), compare-B through ``kmp_bsums`` /
+    ``kmp_nib(..., pat_key=...)`` (m = 5, 16, 32) and Boyer-Moore with
+    ``bm_variant='cursor'`` (256 MiB English, dense 64 MiB);
+(e) times every kernel and its plain version with CUDA events (K9 beside
+    K4 / K10a at the same m, K10c beside K6), ``match``
     per algorithm on a device-resident text (host clock, and device time
     and idle share from torch.profiler), sparse and 'nib' in alternating
-    passes, and from host bytes, the KMP dense-DFA tail at m=509, K6 and
-    K10b at 256 MiB and 1 GB, and config 2's ``RabinKarpMultiMatcher.run``
-    on the device-resident 1 GB text (sparse and 'nib') and from host
-    bytes.
+    passes, and from host bytes, the KMP dense-DFA tail at m=509, K6,
+    K10b and K10c at 256 MiB and 1 GB, config 2's
+    ``RabinKarpMultiMatcher.run`` on the device-resident 1 GB text (sparse
+    'pselect', 'groups' and 'nib' in alternating passes) and from host
+    bytes, and the 'cursor' route on the device-resident 256 MiB text.
 
 The launch counters are zeroed before (b) and read after (f), and zeroed
 again before (g) and read after it: each kernel must have been launched by
@@ -61,6 +75,7 @@ without CUDA the script exits with code 2 before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import statistics
@@ -85,6 +100,48 @@ def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / INT32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+@contextlib.contextmanager
+def step_path(path: str):
+    """Run the Shift-AND wrappers on automaton step ``path`` (the module
+    global ``shift_and.STEP_PATH``, as the reference selects it), restoring
+    the previous step afterwards."""
+    from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.kernels import (
+        shift_and,
+    )
+
+    old, shift_and.STEP_PATH = shift_and.STEP_PATH, path
+    try:
+        yield
+    finally:
+        shift_and.STEP_PATH = old
+
+
+def on_step(path: str, fn, *args, **kw):
+    """``fn(*args, **kw)`` on automaton step ``path``."""
+    with step_path(path):
+        return fn(*args, **kw)
+
+
+K9_NAMES = ("kmp_bsums_composed", "kmp_bsums_compare_b", "kmp_nib_composed",
+            "kmp_nib_compare_b")
+
+
+def group_mask(nib):
+    """int32[Nw/128]: bit g of block b set when the nibble plane
+    ``nib`` (int32[Nw]) has a bit in the block's 32-byte group g (K10c's
+    function of the exact starts)."""
+    import torch
+
+    occ = (nib.view(-1, 16, 8) != 0).any(2).to(torch.int32)
+    shifts = torch.arange(16, dtype=torch.int32, device=nib.device)
+    return (occ << shifts).sum(1, dtype=torch.int32)
+
+
+def popcount16(bm) -> int:
+    """Set bits of the 16-bit masks in ``bm``."""
+    return sum(int(((bm >> g) & 1).sum()) for g in range(16))
 
 
 def nvidia_smi() -> str:
@@ -211,6 +268,7 @@ def main() -> int:
         kmp as kmp_ops,
     )
     from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.ops import (
+        emit,
         reconstruct,
         tables,
     )
@@ -282,7 +340,8 @@ def main() -> int:
     # -- (a) kernels vs plain versions on the card ---------------------------
     names = ("screen_cand_bsums", "naive_nib", "naive_bsums", "kmp_bsums",
              "rk_candidate_bsums", "rk_candidate_pmask", "screened_nib",
-             "screened_bsums", "kmp_nib", "rk_candidate_nib")
+             "screened_bsums", "kmp_nib", "rk_candidate_nib", *K9_NAMES,
+             "rk_candidate_bmask")
     errs = dict.fromkeys(names, 0)
     lines = []
 
@@ -427,6 +486,67 @@ def main() -> int:
                     f"rk_candidate_nib misses a true start on {what}")
             lines.append(f"  {what}: hash candidates {int(bs.sum())}, every true "
                          f"start among them")
+    # (a') K9: the composed step at K = 1, 2, 8 and compare-B at K = 1 (per
+    # byte and composed), against the plain versions and the per-byte
+    # K4 / K10a.  K10c against its plain version and K5.
+    for name, (text, _) in all_corpora:
+        n = len(text)
+        padded = on_card(name, text)
+        for m in (5, 16, 32, 33, 64, 256):
+            p = text[123457 : 123457 + m]
+            Nk, cut = shift_and.kernel_region(padded.numel(), m, cfg.pallas_chunk_bytes)
+            region = padded.view(torch.int32)[: Nk // 4]
+            lim = min(n - m, cut - 1)
+            bt = torch.from_numpy(shift_and.b_table(np.frombuffer(p, np.uint8))).to(dev)
+            what = f"{name} m={m} K={bt.shape[0]}"
+            plain = (shift_and.kmp_bsums_plain(region, lim, bt, m),
+                     shift_and.kmp_nib_plain(region, lim, bt, m))
+            with step_path("perbyte"):
+                per_byte = (shift_and.kmp_bsums(region, lim, bt, m),
+                            shift_and.kmp_nib(region, lim, bt, m))
+            variants = [("composed", None)]
+            if m <= 32:
+                variants += [("perbyte", p), ("composed", p)]
+            for path, key in variants:
+                tag = f"{path}{' compare-B' if key else ''}"
+                for i, (fn, k9) in enumerate(
+                        ((shift_and.kmp_bsums, "kmp_bsums"), (shift_and.kmp_nib, "kmp_nib"))):
+                    k9 = f"{k9}_{'compare_b' if key else 'composed'}"
+                    got = on_step(path, fn, region, lim, bt, m, pat_key=key)
+                    hold(k9, f"{what} {tag}", got, plain[i])
+                    hold(k9, f"{what} {tag} vs {('K4', 'K10a')[i]}", got, per_byte[i])
+            lines.append(f"  {what} K9 {[v[0] + (' compare-B' if v[1] else '') for v in variants]}: "
+                         f"starts {int(per_byte[0].sum())}")
+            del plain, per_byte
+    for name in ("english", "dna"):
+        text = corpora[name][0]
+        n = len(text)
+        padded = on_card(name, text)
+        for what, pats in (("k=1 m=16", [corpora[name][1]]),
+                           ("k=8 m=16 config-2", config2_patterns(text)),
+                           ("k=64 m=12", spread(text, 60, 12)
+                            + [f"P{i:02d}pattern64".encode() for i in range(4)])):
+            m = len(pats[0])
+            Nk, cut = shift_and.kernel_region(padded.numel(), m, cfg.pallas_chunk_bytes)
+            region = padded.view(torch.int32)[: Nk // 4]
+            lim = min(n - m, cut - 1)
+            c = tables.rk_constants(m, base)
+            tgt = torch.tensor([int(tables.rk_hash(np.frombuffer(q, np.uint8), c))
+                                for q in pats], device=dev)
+            bm = rk_roll.rk_candidate_bmask(region, lim, tgt, m, base)
+            hold("rk_candidate_bmask", f"{name} {what}", bm,
+                 rk_roll.rk_candidate_bmask_plain(region, lim, tgt, m, base))
+            bs = rk_roll.rk_candidate_bsums(region, lim, tgt, m, base)
+            assert torch.equal(bm != 0, bs != 0), f"rk_candidate_bmask vs K5 on {what}"
+            true = torch.zeros_like(bm)
+            for q in pats:
+                Pq, Mq = (torch.from_numpy(a).to(dev)
+                          for a in swar.pattern_words(np.frombuffer(q, np.uint8)))
+                true |= group_mask(swar.naive_nib(region, lim, Pq, Mq)[0])
+            assert torch.equal(bm & true, true), f"rk_candidate_bmask misses a start on {what}"
+            lines.append(f"  {name} {what}: groups occupied {popcount16(bm)} in "
+                         f"{int((bm != 0).sum())} blocks (K5's nonzero blocks), every true "
+                         f"start's group among them")
     print("(a) kernels bit-exact against their plain versions (tolerance 0):")
     for s in lines:
         print(f"  {s}")
@@ -440,13 +560,25 @@ def main() -> int:
                "screened_nib": swar.screened_nib,
                "screened_bsums": swar.screened_bsums,
                "kmp_nib": shift_and.kmp_nib,
-               "rk_candidate_nib": rk_roll.rk_candidate_nib}
-    opt_in = ("screened_nib", "screened_bsums", "kmp_nib", "rk_candidate_nib")
+               "rk_candidate_nib": rk_roll.rk_candidate_nib,
+               "rk_candidate_bmask": rk_roll.rk_candidate_bmask}
+    opt_in = ("screened_nib", "screened_bsums", "kmp_nib", "rk_candidate_nib",
+              "rk_candidate_bmask")
+    k9_wrappers = (shift_and.kmp_bsums, shift_and.kmp_nib)
+
+    def zero_counts():
+        for f in kernels.values():
+            f.launches = 0
+        for f in k9_wrappers:
+            f.k9_launches = dict.fromkeys(f.k9_launches, 0)
+
+    def k9_counts() -> dict:
+        return {f"{f.__name__}_{v}": f.k9_launches[v]
+                for f in k9_wrappers for v in ("composed", "compare_b")}
     scan_kernel = {"boyer_moore": swar.screen_cand_bsums,
                    "naive": swar.naive_bsums, "kmp": shift_and.kmp_bsums,
                    "rabin_karp": rk_roll.rk_candidate_bsums}
-    for k in kernels.values():
-        k.launches = 0
+    zero_counts()
 
     def drive(tag: str, text: bytes, pat: bytes, algo: str, dense: bool = False,
               config=cfg, kernel=None, phase: str = "(b)"):
@@ -503,7 +635,7 @@ def main() -> int:
     # -- (f) pattern lists ---------------------------------------------------
     k5_f, k6_f = rk_roll.rk_candidate_bsums.launches, rk_roll.rk_candidate_pmask.launches
 
-    def drive_many(tag: str, text: bytes, pats, want=None, **kw):
+    def drive_many(tag: str, text: bytes, pats, want=None, phase: str = "(f)", **kw):
         """``match(text, pats, **kw)`` against the numpy reference: counts
         exact; offsets all of them (drain) or the first ``capacity``, with
         overflow set exactly when the count exceeds it."""
@@ -511,26 +643,28 @@ def main() -> int:
         if want is None:
             want = [np_find_all(t_np, p) for p in pats]
         cap = kw.get("config", cfg).capacity
-        k2, k5, k6 = (swar.naive_nib.launches, rk_roll.rk_candidate_bsums.launches,
-                      rk_roll.rk_candidate_pmask.launches)
+        k2, k5, k6, k10 = (swar.naive_nib.launches, rk_roll.rk_candidate_bsums.launches,
+                           rk_roll.rk_candidate_pmask.launches,
+                           rk_roll.rk_candidate_bmask.launches)
         t0 = time.perf_counter()
         rs = match(text, pats, **kw)
         dt = time.perf_counter() - t0
         for p, r, w in zip(pats, rs, want):
             assert r.pattern == p and r.count == len(w), (
-                f"(f) {tag} {p!r}: count {r.count} vs {len(w)}")
+                f"{phase} {tag} {p!r}: count {r.count} vs {len(w)}")
             if kw.get("drain"):
-                assert not r.overflow and np.array_equal(r.offsets, w), f"(f) {tag} {p!r}"
+                assert not r.overflow and np.array_equal(r.offsets, w), f"{phase} {tag} {p!r}"
             else:
-                assert r.overflow == (len(w) > cap), f"(f) {tag} {p!r}: overflow"
-                assert np.array_equal(r.offsets, w[:cap]), f"(f) {tag} {p!r}: offsets"
-        print(f"(f) {tag}: k={len(pats)} m={sorted({len(p) for p in pats})} "
+                assert r.overflow == (len(w) > cap), f"{phase} {tag} {p!r}: overflow"
+                assert np.array_equal(r.offsets, w[:cap]), f"{phase} {tag} {p!r}: offsets"
+        print(f"{phase} {tag}: k={len(pats)} m={sorted({len(p) for p in pats})} "
               f"capacity {cap}: counts {[r.count for r in rs]} == numpy reference, "
               f"offsets equal{' (all, drained)' if kw.get('drain') else ''}, overflow "
               f"{[r.overflow for r in rs] if any(r.overflow for r in rs) else False}; "
               f"algos {sorted({r.algo for r in rs})}; launches K5 "
               f"{rk_roll.rk_candidate_bsums.launches - k5}, K6 "
-              f"{rk_roll.rk_candidate_pmask.launches - k6}, K2 "
+              f"{rk_roll.rk_candidate_pmask.launches - k6}, K10c "
+              f"{rk_roll.rk_candidate_bmask.launches - k10}, K2 "
               f"{swar.naive_nib.launches - k2} ({dt:.2f} s from host bytes)")
         return rs
 
@@ -553,7 +687,9 @@ def main() -> int:
     drive_many("blocks, 256 MiB English", eng, config2_patterns(eng),
                algo="rabin_karp", config=cfg.replace(multi_gather="blocks"))
     k64 = spread(eng, 60, 12) + [f"P{i:02d}pattern64".encode() for i in range(4)]
-    drive_many("k=64, 256 MiB English", eng, k64, algo="rabin_karp")
+    eng_np = np.frombuffer(eng, np.uint8)
+    k64_want = [np_find_all(eng_np, p) for p in k64]
+    drive_many("k=64, 256 MiB English", eng, k64, want=k64_want, algo="rabin_karp")
     assert rk_roll.rk_candidate_bsums.launches == k5 + 2, "(f) blocks/k=64 did not take K5"
     rs = drive_many("mixed lengths, 256 MiB English", eng,
                     [b"quick brown fox ", b"the ", b"lazy dog and cat", b"and ",
@@ -577,8 +713,7 @@ def main() -> int:
     print(f"main-path launches (b)-(f): {launches}")
 
     # -- (g) the opt-in routes, with the launch counters zeroed -------------
-    for k in kernels.values():
-        k.launches = 0
+    zero_counts()
     nib_cfg = cfg.replace(emission="nib")
     nib_kernel = {"boyer_moore": swar.screened_nib, "naive": swar.naive_nib,
                   "kmp": shift_and.kmp_nib, "rabin_karp": rk_roll.rk_candidate_nib}
@@ -624,11 +759,91 @@ def main() -> int:
     print(f"(g) config 2 under nib, 1 GB English k=8: counts {[r.count for r in rs]} "
           f"== numpy reference, offsets equal, K10b launched once "
           f"({dt:.2f} s from host bytes)")
+
+    # multi_gather='groups': config 2 at full size on K10c, then 256 MiB.
+    groups_cfg = c2_cfg.replace(multi_gather="groups")
+    before = rk_roll.rk_candidate_bmask.launches
+    rs = drive_many("config 2 under groups, 1 GB English", big, c2_pats, want=c2_want,
+                    algo="rabin_karp", config=groups_cfg, phase="(g)")
+    assert all(r.algo == "rabin_karp_multi" and not r.overflow for r in rs)
+    assert rk_roll.rk_candidate_bmask.launches == before + 1, "(g) config 2 groups: no K10c"
+    g_cfg = cfg.replace(multi_gather="groups")
+    before = rk_roll.rk_candidate_bmask.launches
+    drive_many("groups k=64, 256 MiB English", eng, k64, want=k64_want, algo="rabin_karp",
+               config=g_cfg, phase="(g)")
+    drive_many("groups mixed lengths, 256 MiB English", eng,
+               [b"quick brown fox ", b"the ", b"lazy dog and cat", b"and ",
+                eng[5000:5509], b"fox ", b"e"], algo="rabin_karp", config=g_cfg, phase="(g)")
+    assert rk_roll.rk_candidate_bmask.launches == before + 3, "(g) groups: K10c launches"
+    k5 = rk_roll.rk_candidate_bsums.launches
+    drive_many("groups m=40 (takes blocks), 256 MiB English", eng, spread(eng, 8, 40),
+               algo="rabin_karp", config=g_cfg, phase="(g)")
+    assert rk_roll.rk_candidate_bmask.launches == before + 3
+    assert rk_roll.rk_candidate_bsums.launches == k5 + 1, "(g) groups m=40: not blocks"
+
+    # KMP on the composed step, through match (the reference's STEP_PATH).
+    with step_path("composed"):
+        for name, (text, pat) in corpora.items():
+            for p in (pat, long_pats[name][64], long_pats[name][256]):
+                for e, kernel in (("sparse", shift_and.kmp_bsums),
+                                  ("nib", shift_and.kmp_nib)):
+                    before = kernel.k9_launches["composed"]
+                    drive(f"{name} STEP_PATH=composed {e}", text, p, "kmp",
+                          config=cfg.replace(emission=e), kernel=kernel, phase="(g)")
+                    assert kernel.k9_launches["composed"] == before + 1
+
+    # Compare-B, reached as in the reference: kmp_bsums / kmp_nib with
+    # pat_key, each variant's block sums and nibble plane decoded against
+    # the oracle over the kernel region.
+    padded = on_card("english", eng)
+    for m in (5, 16, 32):
+        p = eng[123457 : 123457 + m]
+        Nk, cut = shift_and.kernel_region(padded.numel(), m, cfg.pallas_chunk_bytes)
+        region = padded.view(torch.int32)[: Nk // 4]
+        lim = min(len(eng) - m, cut - 1)
+        bt = torch.from_numpy(shift_and.b_table(np.frombuffer(p, np.uint8))).to(dev)
+        want = [s0 for s0 in find_all(eng, p) if s0 <= lim]
+        for path in ("perbyte", "composed"):
+            with step_path(path):
+                bs = shift_and.kmp_bsums(region, lim, bt, m, pat_key=p)
+                nib, bs2 = shift_and.kmp_nib(region, lim, bt, m, pat_key=p)
+            c, offs, _ = emit.nibble_to_matches(nib, bs2, len(want) + 1)
+            assert int(bs.sum()) == c == len(want) and offs.tolist() == want, (
+                f"(g) compare-B m={m} {path}")
+        print(f"(g) compare-B m={m}, per byte and composed, 256 MiB english: "
+              f"{len(want)} starts == oracle (block sums and decoded nibble plane)")
+
+    # Boyer-Moore's lane-cursor skip loop (no kernel).
+    cursor_cfg = cfg.replace(bm_variant="cursor")
+    screens = (swar.screen_cand_bsums, swar.screened_bsums, swar.screened_nib)
+    before = [f.launches for f in screens]
+    for tag, text, pat, dense in (("english", eng, b"quick brown fox ", False),
+                                  ("dense 64 MiB", dense_text, dense_pat, True)):
+        t0 = time.perf_counter()
+        r = match(text, pat, config=cursor_cfg)
+        dt = time.perf_counter() - t0
+        if dense:
+            want = np_find_all(np.frombuffer(text, np.uint8), pat)
+            assert r.count == len(want) and r.overflow == (len(want) > cfg.capacity)
+            assert np.array_equal(r.offsets, want[: cfg.capacity]), f"(g) cursor {tag}"
+        else:
+            assert (r.count, r.offsets_list()) == (len(find_all(text, pat)),
+                                                    find_all(text, pat)), f"(g) cursor {tag}"
+        print(f"(g) match {tag} bm_variant=cursor m={len(pat)}: count {r.count} == "
+              f"{'numpy reference' if dense else 'oracle'}, offsets equal "
+              f"({dt:.2f} s from host bytes)")
+    _, offs, _ = BoyerMooreMatcher(b"quick brown fox ", cursor_cfg, device=dev).run(
+        on_card("english", eng), len(eng))
+    assert offs.is_cuda, "(g) cursor offsets left the card"
+    assert [f.launches for f in screens] == before, "(g) cursor launched a screen kernel"
+
     launches_g = {k: kernels[k].launches for k in opt_in}
+    launches_g.update(k9_counts())
     for k, v in launches_g.items():
         assert v > 0, f"kernel {k} was not launched by the opt-in routes"
     launches.update(launches_g)
-    print(f"opt-in-route launches (g): { {k: f.launches for k, f in kernels.items()} }")
+    print(f"opt-in-route launches (g): { {k: f.launches for k, f in kernels.items()} }, "
+          f"K9 {k9_counts()}")
 
     # -- (e) timings ---------------------------------------------------------
     text, pat = corpora["english"]
@@ -656,8 +871,10 @@ def main() -> int:
     # the candidate words (one alignment's nw compares) for K7/K8; one
     # masked compare per alignment per word for the exact verify (a chain
     # stops at its first mismatch); three per state word per byte for the
-    # automaton (shift, OR-AND, carry); two multiply-adds plus one compare
-    # per target per byte for the rolling hash (two for a pattern mask).
+    # automaton (shift, OR-AND, carry), whatever step or lookup K9 takes,
+    # since every variant computes K4's / K10a's function; two multiply-adds
+    # plus one compare per target per byte for the rolling hash (two for a
+    # pattern mask).
     words, bsb = Nk / 4, Nk / 128
     n_probe = sum(len(ks) for ks in probes)
     nw = P.shape[1]
@@ -680,6 +897,15 @@ def main() -> int:
         ("rk_candidate_nib", "m=16"): (2 * Nk + bsb, Nk * 3),
         ("rk_candidate_nib", "m=509"): (2 * Nk + bsb, Nk * 3),
         ("rk_candidate_nib", "k=8 m=16"): (2 * Nk + bsb, Nk * 10),
+        ("kmp_bsums_composed", "m=16"): (Nk + bsb, Nk * 3),
+        ("kmp_bsums_composed", "m=256 K=8"): (Nk + bsb, Nk * 3 * 8),
+        ("kmp_bsums_compare_b", "m=16"): (Nk + bsb, Nk * 3),
+        ("kmp_bsums_compare_b", "m=16 composed"): (Nk + bsb, Nk * 3),
+        ("kmp_nib_composed", "m=16"): (2 * Nk + bsb, Nk * 3),
+        ("kmp_nib_composed", "m=256 K=8"): (2 * Nk + bsb, Nk * 3 * 8),
+        ("kmp_nib_compare_b", "m=16"): (2 * Nk + bsb, Nk * 3),
+        ("kmp_nib_compare_b", "m=16 composed"): (2 * Nk + bsb, Nk * 3),
+        ("rk_candidate_bmask", "k=8 m=16"): (Nk + bsb, Nk * 10),
     }
     cases = {  # (kernel, what): (kernel call, plain call, plain iterations)
         ("screen_cand_bsums", "m=16"): (
@@ -733,7 +959,23 @@ def main() -> int:
         ("rk_candidate_nib", "k=8 m=16"): (
             lambda: rk_roll.rk_candidate_nib(region, n - 16, t8, 16, base),
             lambda: rk_roll.rk_candidate_nib_plain(region, n - 16, t8, 16, base), 2),
+        ("rk_candidate_bmask", "k=8 m=16"): (
+            lambda: rk_roll.rk_candidate_bmask(region, n - 16, t8, 16, base),
+            lambda: rk_roll.rk_candidate_bmask_plain(region, n - 16, t8, 16, base), 2),
     }
+    # K9 beside K4 / K10a: each variant of each wrapper at m=16 and (the
+    # composed step) K=8 m=256; every variant's plain version is K4's /
+    # K10a's.
+    for fn, plain in ((shift_and.kmp_bsums, shift_and.kmp_bsums_plain),
+                      (shift_and.kmp_nib, shift_and.kmp_nib_plain)):
+        for what, bt_, m_, path, key in (("m=16", bt16, 16, "composed", None),
+                                         ("m=256 K=8", bt256, 256, "composed", None),
+                                         ("m=16", bt16, 16, "perbyte", pat),
+                                         ("m=16 composed", bt16, 16, "composed", pat)):
+            k9 = f"{fn.__name__}_{'compare_b' if key else 'composed'}"
+            cases[(k9, what)] = (
+                functools.partial(on_step, path, fn, region, n - m_, bt_, m_, pat_key=key),
+                functools.partial(plain, region, n - m_, bt_, m_), 1)
     ms, plain_ms, bounds, shape = {}, {}, {}, {}
     for (k, what), (kern, plain, plain_iters) in cases.items():
         kt = cuda_ms(kern, 20)
@@ -802,6 +1044,19 @@ def main() -> int:
               f"{'K2 rescan' if chunks > width else 'chunk gather'} (width {width})")
     del pm
     torch.cuda.empty_cache()
+    kt = cuda_ms(lambda: rk_roll.rk_candidate_bmask(big_region, nb - 16, tgt, 16, base), 10)
+    pt = cuda_ms(lambda: rk_roll.rk_candidate_bmask_plain(big_region, nb - 16, tgt, 16, base),
+                 1, warmup=1)
+    b_ms, b_by = bound(big_dev.numel() + big_dev.numel() / 128, big_dev.numel() * 10)
+    print(f"(e) rk_candidate_bmask 1 GB english k=8 m=16 (config 2 under groups): kernel "
+          f"{kt:.4f} ms, plain {pt:.4f} ms, bound {b_ms:.4f} ms by {b_by}, "
+          f"{big_region.numel() * 4 / kt / 1e6:.1f} GB/s kernel {card}")
+    bm = rk_roll.rk_candidate_bmask(big_region, nb - 16, tgt, 16, base)
+    print(f"(e) config 2 under groups: {popcount16(bm)} occupied groups in "
+          f"{int((bm != 0).sum())} candidate blocks (gather width "
+          f"{reconstruct.MULTI_BLOCK_TIER})")
+    del bm
+    torch.cuda.empty_cache()
     kt = cuda_ms(lambda: rk_roll.rk_candidate_nib(big_region, nb - 16, tgt, 16, base), 10)
     pt = cuda_ms(lambda: rk_roll.rk_candidate_nib_plain(big_region, nb - 16, tgt, 16, base),
                  1, warmup=1)
@@ -811,6 +1066,7 @@ def main() -> int:
           f"{big_region.numel() * 4 / kt / 1e6:.1f} GB/s kernel {card}")
     torch.cuda.empty_cache()
     mms = {"sparse": mm,
+           "sparse groups": RabinKarpMultiMatcher(c2_pats, groups_cfg, device=dev),
            "nib": RabinKarpMultiMatcher(c2_pats, c2_nib, device=dev)}
     passes = {e: [] for e in mms}
     for _ in range(3):
@@ -829,6 +1085,17 @@ def main() -> int:
     print(f"(e) config 2 match from host bytes 1 GB: passes "
           f"{[round(x, 4) for x in host]} ms, best {min(host):.4f} ms = "
           f"{nb / min(host) / 1e6:.1f} GB/s {card}")
+    del big_dev, big_region
+    torch.cuda.empty_cache()
+
+    # bm_variant='cursor' on the device-resident 256 MiB text.
+    bmc = BoyerMooreMatcher(pat, cursor_cfg, device=dev)
+    run_ms = host_ms(lambda: bmc.run(padded, n), iters=1, passes=3)
+    dev_ms, per_run = device_profile(lambda: bmc.run(padded, n), runs=1)
+    print(f"(e) match device-resident 256 MiB english m=16 bm_variant=cursor: passes "
+          f"{[round(x, 4) for x in run_ms]} ms; profiler: device {dev_ms:.4f} ms/run, "
+          f"{per_run:.0f} device events/run, idle share "
+          f"{1 - dev_ms / statistics.median(run_ms):.3f} of the median pass {card}")
 
     assert "jax" not in sys.modules, "the port imported jax"
     sources = {"screen_cand_bsums": ("swar.cu", "kernels/swar.py:477"),
@@ -846,7 +1113,17 @@ def main() -> int:
                "kmp_nib": ("shift_and.cu", "kernels/shift_and.py:245 emit='nib' + "
                            f"{REF}/kernels/shift_and.py:557"),
                "rk_candidate_nib": ("rk_roll.cu", "kernels/rk_roll.py:93 emit='nib' + "
-                                    f"{REF}/kernels/shift_and.py:557")}
+                                    f"{REF}/kernels/shift_and.py:557"),
+               "kmp_bsums_composed": ("shift_and.cu", "kernels/shift_and.py:335 "
+                                      "group_composed (emit='bsums')"),
+               "kmp_bsums_compare_b": ("shift_and.cu", "kernels/shift_and.py:316 "
+                                       "lookup_compare (emit='bsums', pat_key)"),
+               "kmp_nib_composed": ("shift_and.cu", "kernels/shift_and.py:335 "
+                                    "group_composed (emit='nib')"),
+               "kmp_nib_compare_b": ("shift_and.cu", "kernels/shift_and.py:316 "
+                                     "lookup_compare (emit='nib', pat_key)"),
+               "rk_candidate_bmask": ("rk_roll.cu", "kernels/rk_roll.py:93 emit='bmask' + "
+                                      f"{REF}/kernels/shift_and.py:224")}
     print(nvidia_smi())
     # No single PyTorch call computes any of these functions: library_ms null.
     print(json.dumps({"kernels": [

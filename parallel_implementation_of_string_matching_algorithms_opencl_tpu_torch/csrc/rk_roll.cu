@@ -2,8 +2,9 @@
 //
 // Replaces kernels/rk_roll.py::_kernel (Pallas, TPU) with emit='bsums' (K5),
 // with emit='pmask' plus kernels/shift_and.py::_end_to_start_pmask (K6),
-// and with emit='nib' plus its host wrapper's end-to-start shift
-// (rk_candidate_nib, shift_and.end_nibble3_to_start_nib) (K10b).
+// with emit='nib' plus its host wrapper's end-to-start shift
+// (rk_candidate_nib, shift_and.end_nibble3_to_start_nib) (K10b), and with
+// emit='bmask' plus kernels/shift_and.py::_end_to_start_bmask (K10c).
 //
 // The window hash of m bytes x[s..s+m-1] is H = sum_j x[s+j] * B^(m-1-j)
 // mod 2^32 (ops/tables.rk_hash).  It rolls one byte at a time,
@@ -40,6 +41,14 @@
 // arrive in order, 16 to a 16-bit accumulator, stored as one 16-byte write
 // of four nibble words when the 16th is known.
 //
+// K10c is the same kernel with Emit::kBmask: it ORs bit j >> 5 into the
+// block's word for each start j that K5 counts, so bit g (0..15) of bs[block]
+// is set exactly when some start s <= n_lim in the block's bytes
+// [32g, 32g + 32) hashes to any target: the 32-byte-group occupancy that
+// multi_gather='groups' verifies.  Any k >= 1.  The reference folds its END
+// nibbles to starts byte-exactly before the any-per-group, so its mask is
+// the same function; it is nonzero exactly where K5's count is.
+//
 // Bound on the H100: latency and issue, not HBM.  Each step is a serial
 // multiply-add chain on H plus k compares; the entering bytes come 16 per
 // load, the departing bytes (the same stream m bytes behind, L1/L2 hits)
@@ -60,9 +69,9 @@ using tpm::load16;
 constexpr int kThreads = 128;
 constexpr int kMaxPattern = 509;
 
-// What a block's scan emits: K5's count, K6's pattern mask, or K10b's count
-// plus the candidate nibble plane.
-enum class Emit { kCount, kPmask, kNib };
+// What a block's scan emits: K5's count, K6's pattern mask, K10b's count
+// plus the candidate nibble plane, or K10c's group occupancy mask.
+enum class Emit { kCount, kPmask, kNib, kBmask };
 
 template <Emit kEmit>
 __global__ void __launch_bounds__(kThreads)
@@ -88,7 +97,8 @@ rk_scan_kernel(const uint8_t* __restrict__ text, long long n_bytes,
   const int sh = (-m) & 3;
 
   uint32_t H = 0u;
-  uint32_t out = 0u;  // K5, K10b: candidate count; K6: pattern-hit mask
+  uint32_t out = 0u;  // K5, K10b: candidate count; K6: pattern-hit mask;
+                      // K10c: group occupancy mask
   uint32_t group = 0u;  // K10b: starts 16g..16g+15, bit j & 15
   uint4* nib4 =
       kEmit == Emit::kNib ? reinterpret_cast<uint4*>(nib + base / 4) : nullptr;
@@ -117,7 +127,11 @@ rk_scan_kernel(const uint8_t* __restrict__ text, long long n_bytes,
         bool hit = false;
         if (j >= 0 && j < lim)
           for (int p = 0; p < k; ++p) hit |= H == tgt[p];
-        out += (uint32_t)hit;
+        if (kEmit == Emit::kBmask) {
+          if (hit) out |= 1u << (j >> 5);  // a hit has 0 <= j < lim <= 512
+        } else {
+          out += (uint32_t)hit;
+        }
         if (kEmit == Emit::kNib && j >= 0 && j < kBlockBytes) {
           group |= (uint32_t)hit << (j & 15);
           if ((j & 15) == 15) {
@@ -172,6 +186,16 @@ int tpm_rk_candidate_pmask(const void* text, long long n_bytes,
                            unsigned int Bm, const void* targets, int k,
                            void* bs, void* stream) {
   return launch_scan<Emit::kPmask>(text, n_bytes, n_lim, m, B, Bm, targets, k,
+                                   nullptr, bs, stream);
+}
+
+// The same arguments as tpm_rk_candidate_bsums; any k >= 1.  bs[b] gets the
+// 16-bit occupancy mask of the block's 32-byte groups.
+int tpm_rk_candidate_bmask(const void* text, long long n_bytes,
+                           long long n_lim, int m, unsigned int B,
+                           unsigned int Bm, const void* targets, int k,
+                           void* bs, void* stream) {
+  return launch_scan<Emit::kBmask>(text, n_bytes, n_lim, m, B, Bm, targets, k,
                                    nullptr, bs, stream);
 }
 

@@ -6,12 +6,14 @@ The window hash ``H = sum_j x[s+j] * B^(m-1-j) mod 2**32``
 ``H <- H*B + in - out*B^m``, and windows whose hash equals a target are
 candidate starts; the caller verifies them.
 
-Three kernels (``csrc/rk_roll.cu``, one template): K5 ``rk_candidate_bsums``
+Four kernels (``csrc/rk_roll.cu``, one template): K5 ``rk_candidate_bsums``
 counts candidate starts per 512-byte block; K6 ``rk_candidate_pmask`` sets,
 per block, bit p when a start hashes to pattern p (the multi-pattern
 screen, k <= 31); K10b ``rk_candidate_nib`` writes K5's counts and the
-candidate nibble plane (``emission='nib'``).  Each has a plain PyTorch version in this module and a
-launch counter (``.launches``).  A wrapper runs the plain version for a CPU
+candidate nibble plane (``emission='nib'``); K10c ``rk_candidate_bmask``
+sets, per block, bit g when a start in its 32-byte group g hashes to any
+target (``multi_gather='groups'``).  Each has a plain PyTorch version in
+this module and a launch counter (``.launches``).  A wrapper runs the plain version for a CPU
 tensor and launches the kernel for a CUDA tensor; there is no other route.
 The region geometry is the Shift-AND kernel's
 (``shift_and.kernel_region``).
@@ -29,6 +31,7 @@ from . import shift_and, swar
 
 MAX_RK_PATTERN = 509  # the reference's per-sub-chunk halo bound
 MAX_PMASK_PATTERNS = 31  # one bit per pattern, the sign bit unused
+GROUP_BYTES = 32  # K10c: one occupancy bit per 32-byte group, 16 per block
 
 
 def rk_roll_supported(m: int) -> bool:
@@ -51,6 +54,7 @@ def rk_params(m: int, base: int) -> tuple[int, int]:
 
 _ARGS = [PTR, I64, I64, INT, U32, U32, PTR, INT, PTR]
 _SIGNATURES = {"tpm_rk_candidate_bsums": _ARGS, "tpm_rk_candidate_pmask": _ARGS,
+               "tpm_rk_candidate_bmask": _ARGS,
                "tpm_rk_candidate_nib": _ARGS + [PTR]}
 
 
@@ -110,7 +114,7 @@ def rk_candidate_pmask_plain(words, n_lim: int, targets, m: int,
 
 def _launch(fn: str, words, n_lim: int, targets, m: int, base: int,
             *out: torch.Tensor):
-    """Run C entry ``fn`` (K5, K6, or K10b with the nibble plane ``out``)
+    """Run C entry ``fn`` (K5, K6, K10c, or K10b with the nibble plane ``out``)
     over the region; int32[Nw/128]."""
     B, Bm = rk_params(m, base)
     # uint32 bits as int32: values >= 2**31 move down by 2**32.
@@ -190,6 +194,33 @@ def rk_candidate_nib(words: torch.Tensor, n_lim: int, targets: torch.Tensor,
     return nib, bs
 
 
+def rk_candidate_bmask_plain(words, n_lim: int, targets, m: int,
+                             base: int) -> torch.Tensor:
+    """Plain PyTorch version of ``rk_candidate_bmask`` (same contract)."""
+    cand = _candidates(words, n_lim, targets, m, base)
+    groups = cand.view(-1, swar.BLOCK_BYTES // GROUP_BYTES, GROUP_BYTES).any(2)
+    weights = 1 << torch.arange(groups.shape[1], device=groups.device)
+    return (groups.to(torch.int64) * weights).sum(1).to(torch.int32)
+
+
+def rk_candidate_bmask(words: torch.Tensor, n_lim: int, targets: torch.Tensor,
+                       m: int, base: int) -> torch.Tensor:
+    """K10c, the group-occupancy screen (``multi_gather='groups'``):
+    ``rk_candidate_bsums``'s arguments, any k >= 1 targets (the mask is per
+    group, not per pattern).  Returns int32[Nw/128] in which bit g (0..15)
+    of block b is set exactly when some start s <= n_lim in bytes
+    [512b + 32g, 512b + 32g + 32) hashes to any target: nonzero exactly
+    where ``rk_candidate_bsums`` is.  Replaces the reference's ``_kernel``
+    with ``emit='bmask'`` and its fold ``shift_and._end_to_start_bmask``."""
+    _check(words, targets, m, base)
+    if words.device.type == "cpu":
+        return rk_candidate_bmask_plain(words, n_lim, targets, m, base)
+    bm = _launch("tpm_rk_candidate_bmask", words, n_lim, targets, m, base)
+    rk_candidate_bmask.launches += 1
+    return bm
+
+
 rk_candidate_bsums.launches = 0
 rk_candidate_pmask.launches = 0
 rk_candidate_nib.launches = 0
+rk_candidate_bmask.launches = 0

@@ -7,12 +7,16 @@ is set.  ``B[c]`` has bit j set when ``pattern[j] == c``; one 32-bit word
 holds 32 pattern bytes, and K = ceil(m/32) words with a carry between them
 hold up to ``MAX_SHIFT_AND_PATTERN`` bytes.
 
-Two kernels (``csrc/shift_and.cu``, one template): K4 ``kmp_bsums``, the
-automaton's match starts counted per 512-byte block, and K10a ``kmp_nib``,
-the same counts plus the nibble plane of the starts (``emission='nib'``).
-Each has a plain PyTorch version in this module and a launch counter
-(``.launches``).  A wrapper runs the plain version for a CPU tensor and
-launches the kernel for a CUDA tensor; there is no other route.
+Two wrappers over one CUDA template (``csrc/shift_and.cu``): K4
+``kmp_bsums``, the automaton's match starts counted per 512-byte block, and
+K10a ``kmp_nib``, the same counts plus the nibble plane of the starts
+(``emission='nib'``).  Each also runs K9, the reference's opt-in automaton
+variants: the composed-4 step (``STEP_PATH = "composed"``) and the
+compare-B lookup (``pat_key``, one state word).  Each has a plain
+PyTorch version in this module and launch counters (``.launches`` for
+every launch, ``.k9_launches`` per K9 variant).  A wrapper runs the plain
+version for a CPU tensor and launches the kernel for a CUDA tensor; there
+is no other route.
 """
 
 from __future__ import annotations
@@ -27,6 +31,14 @@ from . import swar
 
 MAX_STATE_WORDS = 8
 MAX_SHIFT_AND_PATTERN = 32 * MAX_STATE_WORDS  # 256, BASELINE config 3's range
+
+# Automaton step of the kernels, as the reference's module global of the
+# same name: "auto" and "perbyte" run one step per byte, "composed" four
+# steps per text word (m >= 5; shorter patterns run per byte).  Setting it
+# is how ``match`` reaches the composed step.
+STEP_PATH = "auto"
+STEP_PATHS = ("auto", "perbyte", "composed")
+COMPOSED_MIN_M = 5  # the composed step reads bits m-5..m-1 of the state
 
 
 def shift_and_supported(m: int) -> bool:
@@ -66,8 +78,8 @@ def kernel_region(N: int, m: int, chunk_bytes: int) -> tuple[int, int]:
 # Kernel wrapper
 # ---------------------------------------------------------------------------
 
-_SIGNATURES = {"tpm_kmp_bsums": [PTR, I64, I64, PTR, INT, INT, PTR],
-               "tpm_kmp_nib": [PTR, I64, I64, PTR, INT, INT, PTR, PTR]}
+_ARGS = [PTR, I64, I64, PTR, INT, INT, PTR, PTR, INT, INT, PTR]
+_SIGNATURES = {"tpm_kmp_bsums": _ARGS, "tpm_kmp_nib": _ARGS + [PTR]}
 
 
 def check_region(words: torch.Tensor) -> None:
@@ -88,7 +100,10 @@ def check_region(words: torch.Tensor) -> None:
         raise ValueError("words must start on a 16-byte boundary")
 
 
-def _check(words: torch.Tensor, bt: torch.Tensor, m: int) -> None:
+def _check(words: torch.Tensor, bt: torch.Tensor, m: int,
+           pat_key: bytes | None = None) -> tuple[bool, bool]:
+    """Validate a wrapper's arguments; returns the K9 variant it runs,
+    (composed step, compare-B lookup)."""
     check_region(words)
     if not shift_and_supported(m):
         raise ValueError(f"m must be in 1..{MAX_SHIFT_AND_PATTERN}, got {m}")
@@ -101,6 +116,25 @@ def _check(words: torch.Tensor, bt: torch.Tensor, m: int) -> None:
         )
     if bt.device != words.device:
         raise ValueError(f"bt is on {bt.device}, words on {words.device}")
+    if STEP_PATH not in STEP_PATHS:
+        raise ValueError(
+            f"STEP_PATH must be one of {STEP_PATHS}, got {STEP_PATH!r}")
+    if pat_key is not None and len(pat_key) != m:
+        raise ValueError(
+            f"pat_key must hold the m={m} pattern bytes, got {len(pat_key)}")
+    return (STEP_PATH == "composed" and m >= COMPOSED_MIN_M,
+            pat_key is not None and state_words(m) == 1)
+
+
+def compare_tables(pat_key: bytes) -> tuple[np.ndarray, np.ndarray]:
+    """Compare-B's inputs: the pattern's distinct bytes (first-occurrence
+    order) and, for each, its B mask (bit j set when pat_key[j] is that
+    byte), both uint32 viewed as int32."""
+    masks: dict[int, int] = {}
+    for j, c in enumerate(pat_key):
+        masks[c] = masks.get(c, 0) | (1 << j)
+    return (np.array(list(masks), np.uint32).view(np.int32),
+            np.array(list(masks.values()), np.uint32).view(np.int32))
 
 
 def pattern_from_table(bt: torch.Tensor, m: int) -> torch.Tensor:
@@ -126,31 +160,57 @@ def kmp_bsums_plain(words, n_lim: int, bt, m: int) -> torch.Tensor:
     return hit.view(-1, swar.BLOCK_BYTES).sum(1, dtype=torch.int32)
 
 
-def kmp_bsums(words: torch.Tensor, n_lim: int, bt: torch.Tensor,
-              m: int) -> torch.Tensor:
-    """K4, the Shift-AND scan over the kernel region.
+def _launch(wrapper, fn: str, words, n_lim: int, bt, m: int,
+            variant: tuple[bool, bool], pat_key, *out: torch.Tensor):
+    """Run C entry ``fn`` (K4/K10a, or K9 when ``variant`` asks for the
+    composed step or compare-B) over the region, counting the launch on
+    ``wrapper``; returns int32[Nw/128] block sums."""
+    composed, compare_b = variant
+    cmp = [torch.empty(0, dtype=torch.int32, device=words.device)] * 2
+    if compare_b:
+        cmp = [torch.from_numpy(a).to(words.device)
+               for a in compare_tables(pat_key)]
+    bs = torch.empty(words.numel() // swar.BLOCK_WORDS, dtype=torch.int32,
+                     device=words.device)
+    cuda_build.launch(cuda_build.load("shift_and", _SIGNATURES), fn,
+                      words.device, words.data_ptr(), 4 * words.numel(),
+                      int(n_lim), bt.data_ptr(), bt.shape[0], m,
+                      cmp[0].data_ptr(), cmp[1].data_ptr(), cmp[0].numel(),
+                      int(composed), *(t.data_ptr() for t in out),
+                      bs.data_ptr())
+    wrapper.launches += 1
+    for name, on in (("composed", composed), ("compare_b", compare_b)):
+        wrapper.k9_launches[name] += on
+    return bs
+
+
+def kmp_bsums(words: torch.Tensor, n_lim: int, bt: torch.Tensor, m: int,
+              pat_key: bytes | None = None) -> torch.Tensor:
+    """K4, the Shift-AND scan over the kernel region, or K9 for the
+    reference's opt-in step and lookup.
 
     ``words``: int32[Nw] region words (Nw a multiple of 128); ``n_lim``: the
     largest start counted (the caller's clamp, min(n, Nk) - m); ``bt``:
     int32[K, 256] from ``b_table`` of the m pattern bytes the automaton
     runs.  Returns int32[Nw/128]: per 512-byte block the starts s <= n_lim
-    where those m bytes match.  Replaces the reference's ``_kernel`` with
-    ``emit='bsums'`` (``kmp_bsums``); csrc/shift_and.cu notes what bounds
-    it."""
-    _check(words, bt, m)
+    where those m bytes match.  The module global ``STEP_PATH`` picks the
+    automaton step; "composed" runs K9's composed-4 step for m >= 5.
+    ``pat_key``: the m pattern bytes that
+    ``bt`` encodes; given, and at K = 1, B comes from compares against them
+    (K9's compare-B) instead of the table; at K > 1 it has no effect, as in
+    the reference.  Every variant computes the same function, so
+    ``kmp_bsums_plain`` is the plain version of all of them.  Replaces the
+    reference's ``_kernel`` with ``emit='bsums'`` (``kmp_bsums``);
+    csrc/shift_and.cu notes what bounds it."""
+    variant = _check(words, bt, m, pat_key)
     if words.device.type == "cpu":
         return kmp_bsums_plain(words, n_lim, bt, m)
-    bs = torch.empty(words.numel() // swar.BLOCK_WORDS, dtype=torch.int32,
-                     device=words.device)
-    cuda_build.launch(cuda_build.load("shift_and", _SIGNATURES),
-                      "tpm_kmp_bsums", words.device, words.data_ptr(),
-                      4 * words.numel(), int(n_lim), bt.data_ptr(),
-                      bt.shape[0], m, bs.data_ptr())
-    kmp_bsums.launches += 1
-    return bs
+    return _launch(kmp_bsums, "tpm_kmp_bsums", words, n_lim, bt, m, variant,
+                   pat_key)
 
 
 kmp_bsums.launches = 0
+kmp_bsums.k9_launches = {"composed": 0, "compare_b": 0}
 
 
 def kmp_nib_plain(words, n_lim: int, bt, m: int):
@@ -160,27 +220,26 @@ def kmp_nib_plain(words, n_lim: int, bt, m: int):
             hit.view(-1, swar.BLOCK_BYTES).sum(1, dtype=torch.int32))
 
 
-def kmp_nib(words: torch.Tensor, n_lim: int, bt: torch.Tensor,
-            m: int) -> tuple[torch.Tensor, torch.Tensor]:
+def kmp_nib(words: torch.Tensor, n_lim: int, bt: torch.Tensor, m: int,
+            pat_key: bytes | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """K10a, the Shift-AND scan with the nibble plane (KMP with
-    ``emission='nib'``): ``kmp_bsums``'s arguments, K = ceil(m/32) state
-    words of the whole pattern.  Returns (nib int32[Nw], bs int32[Nw/128]):
-    bit a of nib[w] = start at byte 4w + a <= n_lim, bs = ``kmp_bsums``.
-    Replaces the reference's ``_kernel`` with ``emit='nib'`` and the
-    end-to-start shift of its host wrapper ``kmp_nib``, whose nibbles carry no
-    validity (applied downstream there, in the kernel here)."""
-    _check(words, bt, m)
+    ``emission='nib'``), or K9 for the reference's opt-in step and lookup:
+    ``kmp_bsums``'s arguments, K = ceil(m/32) state words of the whole
+    pattern.  Returns (nib int32[Nw], bs int32[Nw/128]): bit a of nib[w] =
+    start at byte 4w + a <= n_lim, bs = ``kmp_bsums``.  ``STEP_PATH`` and
+    ``pat_key`` as for ``kmp_bsums``; ``kmp_nib_plain`` is the plain
+    version of every variant.  Replaces the reference's ``_kernel`` with
+    ``emit='nib'`` and the end-to-start shift of its host wrapper
+    ``kmp_nib``, whose nibbles carry no validity (applied downstream there,
+    in the kernel here)."""
+    variant = _check(words, bt, m, pat_key)
     if words.device.type == "cpu":
         return kmp_nib_plain(words, n_lim, bt, m)
     nib = torch.empty_like(words)
-    bs = torch.empty(words.numel() // swar.BLOCK_WORDS, dtype=torch.int32,
-                     device=words.device)
-    cuda_build.launch(cuda_build.load("shift_and", _SIGNATURES),
-                      "tpm_kmp_nib", words.device, words.data_ptr(),
-                      4 * words.numel(), int(n_lim), bt.data_ptr(),
-                      bt.shape[0], m, nib.data_ptr(), bs.data_ptr())
-    kmp_nib.launches += 1
+    bs = _launch(kmp_nib, "tpm_kmp_nib", words, n_lim, bt, m, variant,
+                 pat_key, nib)
     return nib, bs
 
 
 kmp_nib.launches = 0
+kmp_nib.k9_launches = {"composed": 0, "compare_b": 0}

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..kernels import rk_roll, shift_and, swar
+from ..ops import boyer_moore as bm_ops
 from ..ops import emit
 from ..ops import kmp as kmp_ops
 from ..ops import naive as naive_ops
@@ -286,7 +287,13 @@ class BoyerMooreMatcher(_RegionMatcher):
 
     ``table_dyn`` takes its probes from ``swar_pr`` (the reference's
     runtime probe table); the other probe modes from the layout stamped
-    into the config, or the positional probes for ``'static'``."""
+    into the config, or the positional probes for ``'static'``.
+
+    ``bm_variant='cursor'`` runs no kernel: the reference's lane-cursor
+    skip loop (``ops/boyer_moore.bm_start_mask_cursor``, ``bm_chunk``-byte
+    lanes, the ``bad_char`` and ``good_suffix`` tables) over the whole
+    padded text on the matcher's device.  ``'filtered'`` texts that take
+    no kernel take the naive mask, which gives the same answer."""
 
     name = "boyer_moore"
 
@@ -326,11 +333,16 @@ class BoyerMooreMatcher(_RegionMatcher):
         return t
 
     def _mask(self, text: torch.Tensor) -> torch.Tensor:
+        if self.config.bm_variant == "cursor":
+            t = self.dev_tables
+            return bm_ops.bm_start_mask_cursor(text, self.pattern_dev,
+                                               t["bad_char"], t["good_suffix"],
+                                               self.config.bm_chunk)
         return naive_ops.naive_start_mask(text, self.pattern_dev)
 
     def _direct(self, text: torch.Tensor, n: int):
         m = self.m
-        if not swar.swar_supported(m):
+        if self.config.bm_variant == "cursor" or not swar.swar_supported(m):
             return None
         Nk, cut = swar.kernel_region(text.shape[0], m,
                                      self.config.pallas_chunk_bytes)

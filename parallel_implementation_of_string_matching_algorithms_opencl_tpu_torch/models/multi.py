@@ -7,17 +7,21 @@ k patterns of one length share one rolling-hash pass over the kernel region
 - ``multi_gather='pselect'`` (default, k <= 31): K6
   ``rk_roll.rk_candidate_pmask`` marks, per 512-byte block, which patterns'
   hashes hit there, and each pattern verifies only its own blocks;
-- ``'blocks'``, and any k > 31: K5 ``rk_roll.rk_candidate_bsums`` counts
-  hits of any of the k hashes, and every pattern verifies every candidate
-  block;
+- ``'blocks'``, and ``'pselect'`` with k > 31: K5
+  ``rk_roll.rk_candidate_bsums`` counts hits of any of the k hashes, and
+  every pattern verifies every candidate block;
 - ``reconstruct.extract_region_multi`` verifies and recounts per pattern
   (the K2 rescan for a pattern with more candidate chunks than the gather
   width);
+- ``'groups'``, any k, m <= 33: K10c ``rk_roll.rk_candidate_bmask`` marks,
+  per block, which 32-byte groups hold a hit of any of the k hashes, and
+  ``reconstruct.extract_region_multi_groups`` verifies each pattern on
+  those groups only; m > 33 takes ``'blocks'``, as in the reference;
 - ``emission='nib'``: K10b ``rk_roll.rk_candidate_nib`` writes one
   candidate plane over all k hashes, its first ``verify_capacity``
   candidates are decoded once, and each pattern verifies them at their
   windows (``ops/rabin_karp.verify_region``; an exact compare of the region
-  when there are more);
+  when there are more), whatever ``multi_gather`` says;
 - the tail [cut, N) takes ``ops/rabin_karp.rk_multi_start_masks``, merged
   per pattern.
 
@@ -116,6 +120,16 @@ class RabinKarpMultiMatcher:
                                      cfg.verify_capacity, cfg.capacity)
                 for pat in self.patterns_dev
             ]
+        elif cfg.multi_gather == "groups" and self.swar_m.shape[1] <= 9:
+            # The reference's gate: its 16-word group slab holds the
+            # compare chain only for nw <= 9 pattern words (m <= 33).
+            bm = rk_roll.rk_candidate_bmask(words[: Nk // 4], limit, hashes,
+                                            m, base)
+            regions = reconstruct.extract_region_multi_groups(
+                bm, reconstruct.full_words2d(words),
+                self.dev_tables["swar_ps"], self.swar_m, m, limit,
+                cfg.capacity,
+            )
         else:
             pmask = (cfg.multi_gather == "pselect"
                      and self.k <= rk_roll.MAX_PMASK_PATTERNS)

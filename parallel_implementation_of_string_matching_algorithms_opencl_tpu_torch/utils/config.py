@@ -3,8 +3,8 @@
 Only the fields the matchers (naive, Rabin-Karp, KMP, Boyer-Moore and
 multi-pattern Rabin-Karp) read are carried.  The JAX-only switches (``use_pallas``,
 ``interpret``, the AOT cache) have no meaning here: on a CUDA tensor the
-kernels always run, on a CPU tensor their plain PyTorch versions do.  Modes of the reference that this package does not
-implement yet raise ``NotImplementedError`` at construction.
+kernels always run, on a CPU tensor their plain PyTorch versions do.  Every
+mode of the reference's fields is implemented.
 """
 
 from __future__ import annotations
@@ -19,7 +19,13 @@ import dataclasses
 # 'table_dyn' takes the bad-character-scored pair as the reference's
 # runtime probes and always runs the screen-then-verify kernel (K8, the
 # same CUDA kernel as K7: a runtime probe index costs nothing here).
-PORTED_PROBES = ("table_gs", "table", "static", "table_dyn", "table_gs1")
+BM_PROBES = ("table_gs", "table", "static", "table_dyn", "table_gs1")
+# Boyer-Moore variant: 'filtered' runs the probe screen and an exact verify
+# of its candidates (the kernels above); 'cursor' runs the reference's
+# lane-cursor skip loop (ops/boyer_moore.bm_start_mask_cursor): one cursor
+# per bm_chunk bytes, all stepping by max(bad-character, good-suffix) shift
+# until each leaves its chunk.  No kernel: plain PyTorch on the device.
+BM_VARIANT = ("filtered", "cursor")
 # Boyer-Moore screen execution under sparse emission: 'cand' counts probe
 # candidates per block (K1) and extract_region verifies them; 'fused'
 # verifies every word with a probe hit in the kernel (K7) and extract_region
@@ -41,15 +47,14 @@ KMP_LONG = ("screen", "ripple")
 # screens with per-block pattern-hit masks (K6, k <= 31) and verifies each
 # block only against the patterns flagged in it; 'blocks' screens with
 # candidate counts over all k targets (K5) and verifies every candidate
-# block against every pattern.  k > 31 always takes 'blocks'.  Under 'nib'
-# one candidate plane over all k targets (K10b) feeds every pattern's
-# verify.
-MULTI_GATHER = ("pselect", "blocks")
-# Reference modes not ported yet (ROADMAP.md, Queue 2).
-UNPORTED = {
-    "bm_variant": ("cursor",),
-    "multi_gather": ("groups",),
-}
+# block against every pattern; 'pselect' with k > 31 takes 'blocks'.
+# 'groups' (m <= 33; longer patterns take 'blocks') screens with 16-bit
+# occupancy masks (K10c, bit g of a block = a candidate start in its
+# 32-byte group g) and verifies every pattern only on the occupied groups
+# (ops/reconstruct.extract_region_multi_groups), any k.  Under 'nib' one
+# candidate plane over all k targets (K10b) feeds every pattern's verify,
+# whatever this field says.
+MULTI_GATHER = ("pselect", "blocks", "groups")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,13 +70,15 @@ class MatchConfig:
     kmp_chunk: int = 2048
     # KMP kernel execution for m > 32 (see KMP_LONG).
     kmp_long: str = "screen"
-    # Boyer-Moore screen probe selection (see PORTED_PROBES).
+    # Boyer-Moore screen probe selection (see BM_PROBES).
     bm_probes: str = "table_gs"
     # Concrete per-pattern probe layout (tuple[4] of tuples of word
     # indices), stamped by BoyerMooreMatcher at construction.
     bm_probe_layout: tuple | None = None
-    # 'filtered': probe screen + exact verify of the candidates.
+    # Boyer-Moore variant (see BM_VARIANT).
     bm_variant: str = "filtered"
+    # Lane chunk length of the Boyer-Moore cursor skip loop.
+    bm_chunk: int = 4096
     # Boyer-Moore screen execution under sparse emission (see BM_SCREEN).
     bm_screen: str = "cand"
     # Pad text length to a multiple of this (4096 = one 1024-word row, so
@@ -102,7 +109,7 @@ class MatchConfig:
                 f"(whole 512-byte blocks per chunk), got "
                 f"{self.pallas_chunk_bytes}"
             )
-        for field in ("capacity", "verify_capacity", "kmp_chunk"):
+        for field in ("capacity", "verify_capacity", "kmp_chunk", "bm_chunk"):
             if getattr(self, field) < 1:
                 raise ValueError(
                     f"{field} must be >= 1, got {getattr(self, field)}")
@@ -114,20 +121,11 @@ class MatchConfig:
             raise ValueError(
                 f"rk_base must be an odd uint32 (invertible mod 2**32), got "
                 f"{self.rk_base}")
-        for field, values in UNPORTED.items():
-            if getattr(self, field) in values:
-                raise NotImplementedError(
-                    f"{field}={getattr(self, field)!r} is not ported to the "
-                    f"PyTorch package yet (ROADMAP.md, Queue 2)"
-                )
-        if self.bm_probes not in PORTED_PROBES:
-            raise ValueError(f"unknown bm_probes {self.bm_probes!r}")
-        if self.multi_gather not in MULTI_GATHER:
-            raise ValueError(f"unknown multi_gather {self.multi_gather!r}")
-        if self.bm_variant != "filtered":
-            raise ValueError(f"unknown bm_variant {self.bm_variant!r}")
-        for field, values in (("bm_screen", BM_SCREEN),
-                              ("emission", EMISSION)):
+        for field, values in (("bm_probes", BM_PROBES),
+                              ("bm_variant", BM_VARIANT),
+                              ("bm_screen", BM_SCREEN),
+                              ("emission", EMISSION),
+                              ("multi_gather", MULTI_GATHER)):
             if getattr(self, field) not in values:
                 raise ValueError(f"unknown {field} {getattr(self, field)!r}")
 

@@ -1,8 +1,9 @@
-"""PyTorch port on the card: the CUDA kernels (K1-K8, K10a, K10b) against
-their plain versions and against the ported kernel with the same answer,
-and ``match()`` of every algorithm, of every ``emission``, Boyer-Moore
-screen and probe mode, and of pattern lists, against the oracle.  Every test here is marked ``cuda`` and
-skips without a GPU.
+"""PyTorch port on the card: the CUDA kernels (K1-K10c) against their
+plain versions and against the ported kernel with the same answer, and
+``match()`` of every algorithm, of every ``emission``, Boyer-Moore screen,
+probe mode and variant, of KMP's composed step, and of pattern lists under
+every ``multi_gather``, against the oracle.  Every test here is marked
+``cuda`` and skips without a GPU.
 
 This file imports neither jax nor the JAX package, so it also runs on a
 machine without jax, where ``tests/conftest.py`` (which imports jax) must
@@ -25,6 +26,9 @@ from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.kern
     rk_roll,
     shift_and,
     swar,
+)
+from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.models.algorithms import (
+    BoyerMooreMatcher,
 )
 from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.ops import (
     reconstruct,
@@ -377,3 +381,123 @@ def test_multi_nib_end_to_end(k, cuda_device):
         want = find_all(text, p)
         assert r.count == len(want) and r.offsets_list() == want[:4096], p
     assert rk_roll.rk_candidate_nib.launches == before + 1
+
+
+@pytest.mark.parametrize("m", [5, 16, 32, 33, 64, 256])
+def test_k9_variants_bit_exact(m, cuda_device, monkeypatch):
+    """K9 at 4 MiB: the composed-4 step (K = 1..8) and the compare-B lookup
+    (K = 1, alone and with the composed step) equal the plain versions and
+    K4 / K10a (tolerance 0) under both emissions; one launch per call,
+    counted per variant (compare-B has no effect at K > 1)."""
+    pat = bytes(gen_english(m, seed=1100 + m))
+    if m == 32:  # bit 31 of B set: the compare mask wraps as int32
+        pat = pat[:31] + pat[:1]
+    words, limit, P, M = _region(8 * TILE, pat, cuda_device)
+    bt = torch.from_numpy(shift_and.b_table(_u8(pat))).to(cuda_device)
+    monkeypatch.setattr(shift_and, "STEP_PATH", "perbyte")
+    bs4 = shift_and.kmp_bsums(words, limit, bt, m)
+    nib10, bs10 = shift_and.kmp_nib(words, limit, bt, m)
+    assert torch.equal(bs4, shift_and.kmp_bsums_plain(words, limit, bt, m))
+    nib_p, bs_p = shift_and.kmp_nib_plain(words, limit, bt, m)
+    assert torch.equal(nib10, nib_p) and torch.equal(bs10, bs_p)
+    for path, key in (("composed", None), ("perbyte", pat), ("composed", pat)):
+        monkeypatch.setattr(shift_and, "STEP_PATH", path)
+        counts = [(f.launches, dict(f.k9_launches))
+                  for f in (shift_and.kmp_bsums, shift_and.kmp_nib)]
+        bs = shift_and.kmp_bsums(words, limit, bt, m, pat_key=key)
+        nib, bsn = shift_and.kmp_nib(words, limit, bt, m, pat_key=key)
+        torch.cuda.synchronize()
+        step = {"composed": int(path == "composed"),
+                "compare_b": int(key is not None and m <= 32)}
+        for f, (n0, k9) in zip((shift_and.kmp_bsums, shift_and.kmp_nib), counts):
+            assert f.launches == n0 + 1
+            assert f.k9_launches == {v: k9[v] + step[v] for v in k9}
+        assert torch.equal(bs, bs4) and torch.equal(nib, nib10)
+        assert torch.equal(bsn, bs10)
+    assert int(bs4.sum()) >= 4
+
+
+def test_kmp_composed_match_end_to_end(cuda_device, monkeypatch):
+    """match(algo='kmp') with ``shift_and.STEP_PATH = "composed"`` on
+    4 MiB, sparse (the m > 32 screen too) and 'nib': exact against the
+    oracle, every launch on the composed step."""
+    monkeypatch.setattr(shift_and, "STEP_PATH", "composed")
+    text = bytes(gen_english(4 << 20, seed=26))
+    for emission, kernel in (("sparse", shift_and.kmp_bsums),
+                             ("nib", shift_and.kmp_nib)):
+        cfg = MatchConfig(capacity=4096, emission=emission)
+        for pat in (b"quick brown fox ", b"e the", text[1000:1064], text[5000:5256]):
+            before = kernel.k9_launches["composed"]
+            r = match(text, pat, algo="kmp", config=cfg)
+            want = find_all(text, pat)
+            assert r.count == len(want) and r.offsets_list() == want[:4096]
+            assert kernel.k9_launches["composed"] == before + 1
+
+
+@pytest.mark.parametrize("k,m", [(1, 16), (8, 16), (40, 12), (2, 509)])
+def test_bmask_kernel_bit_exact(k, m, cuda_device):
+    """K10c equals its plain version (tolerance 0), one launch per call; it
+    is nonzero exactly where K5's count over the same targets is, and holds
+    every true start's group."""
+    n = 3 * TILE + 1234
+    text = gen_english(n, seed=3000 + k + m)
+    pats = [text[7919 * i + 11 : 7919 * i + 11 + m] for i in range(k)]
+    words, limit, _, _ = _region(n, pats[-1], cuda_device)
+    base = int(tables.RK_BASE)
+    c = tables.rk_constants(m, base)
+    tgt = torch.tensor([int(tables.rk_hash(_u8(p), c)) for p in pats],
+                       device=cuda_device)
+    before = rk_roll.rk_candidate_bmask.launches
+    bm = rk_roll.rk_candidate_bmask(words, limit, tgt, m, base)
+    torch.cuda.synchronize()
+    assert rk_roll.rk_candidate_bmask.launches == before + 1
+    assert torch.equal(bm, rk_roll.rk_candidate_bmask_plain(words, limit, tgt, m, base))
+    bs = rk_roll.rk_candidate_bsums(words, limit, tgt, m, base)
+    assert torch.equal(bm != 0, bs != 0) and int(bm.max()) < 1 << 16
+    region = words.cpu().numpy().tobytes()
+    for p in pats:
+        for s0 in find_all(region[: limit + m], p):
+            assert int(bm[s0 // 512]) >> (s0 % 512 // 32) & 1
+
+
+@pytest.mark.parametrize("mode", ["k8", "k40", "m40"])
+def test_groups_match_end_to_end(mode, cuda_device):
+    """match() of a pattern list with multi_gather='groups' on 4 MiB: every
+    result exact against the oracle; K10c launched once (m <= 33), or K5
+    for m = 40, which takes 'blocks'."""
+    text = bytes(gen_english(4 << 20, seed=27))
+    k, m = {"k8": (8, 16), "k40": (40, 12), "m40": (8, 40)}[mode]
+    pats = [text[(i * 524287) % (len(text) - m):][:m] for i in range(k - 1)]
+    pats.append(b"\x00" * (m - 1) + b"\xfe")  # absent
+    cfg = MatchConfig(capacity=4096, multi_gather="groups")
+    k5, k10 = rk_roll.rk_candidate_bsums.launches, rk_roll.rk_candidate_bmask.launches
+    rs = match(text, pats, algo="rabin_karp", config=cfg)
+    for p, r in zip(pats, rs):
+        want = find_all(text, p)
+        assert r.algo == "rabin_karp_multi"
+        assert r.count == len(want) and r.offsets_list() == want[:4096], p
+    groups = m <= 33
+    assert rk_roll.rk_candidate_bmask.launches == k10 + groups
+    assert rk_roll.rk_candidate_bsums.launches == k5 + (not groups)
+
+
+def test_cursor_match_end_to_end(cuda_device):
+    """match() with bm_variant='cursor' on 4 MiB: exact against the oracle,
+    no screen kernel launched, the offsets a CUDA tensor before the host
+    copy; drain complete."""
+    text = bytes(gen_english(4 << 20, seed=28))
+    cfg = MatchConfig(capacity=4096, bm_variant="cursor")
+    for pat in (b"quick brown fox ", b"e ", text[5000:5509]):
+        before = (swar.screen_cand_bsums.launches, swar.screened_bsums.launches,
+                  swar.screened_nib.launches)
+        r = match(text, pat, config=cfg)
+        want = find_all(text, pat)
+        assert r.count == len(want) and r.offsets_list() == want[:4096]
+        assert (swar.screen_cand_bsums.launches, swar.screened_bsums.launches,
+                swar.screened_nib.launches) == before
+    bm = BoyerMooreMatcher(b"quick brown fox ", cfg, device=cuda_device)
+    padded = torch.from_numpy(pad_to_multiple(_u8(text), TILE).copy()).to(cuda_device)
+    count, offsets, _ = bm.run(padded, len(text))
+    assert offsets.is_cuda and count == len(find_all(text, b"quick brown fox "))
+    r = match(text, b"the ", config=cfg, drain=True)
+    assert r.offsets_list() == find_all(text, b"the ")

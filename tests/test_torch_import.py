@@ -1,5 +1,5 @@
 """PyTorch port: import isolation from JAX, the explicit device, the
-algorithms, pattern lists, and the modes that are not ported yet."""
+algorithms, pattern lists, and the opt-in modes."""
 
 import os
 import subprocess
@@ -59,16 +59,16 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 
 def test_pattern_list_and_unported_algorithms_raise():
-    """A list of patterns runs (one result per pattern, in input order);
-    ``multi_gather='groups'`` is not ported and raises; all four
-    algorithms and their aliases run."""
+    """A list of patterns runs (one result per pattern, in input order),
+    with ``multi_gather='groups'`` too; all four algorithms and their
+    aliases run; an unknown algorithm raises."""
     rs = match(b"abcab", [b"ab", "ca", b"b"], algo="rk", device="cpu")
     assert [r.offsets_list() for r in rs] == [[0, 3], [2], [1, 4]]
     assert [r.algo for r in rs] == ["rabin_karp_multi", "rabin_karp_multi",
                                     "rabin_karp"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        match(b"abc", [b"a", b"b"], algo="rk", device="cpu",
-              multi_gather="groups")
+    rs = match(b"abc", [b"a", b"b"], algo="rk", device="cpu",
+               multi_gather="groups")
+    assert [r.offsets_list() for r in rs] == [[0], [1]]
     for algo in ("naive", "kmp", "rabin_karp", "rk", "brute", "bm",
                  "boyer_moore"):
         assert match(b"abcab", b"ab", algo=algo, device="cpu").offsets_list() == [0, 3]
@@ -81,16 +81,9 @@ def test_pattern_list_and_unported_algorithms_raise():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("bm_variant", "cursor"), ("multi_gather", "groups"),
-])
-def test_unported_modes_raise(field, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MatchConfig(**{field: value})
-
-
-@pytest.mark.parametrize("field,value", [
     ("bm_screen", "fused"), ("emission", "nib"),
     ("bm_probes", "table_dyn"), ("bm_probes", "table_gs1"),
+    ("bm_variant", "cursor"), ("multi_gather", "groups"),
 ])
 def test_ported_opt_in_modes_run(field, value):
     """The opt-in modes construct and match a short text on the CPU."""
@@ -103,6 +96,7 @@ def test_ported_opt_in_modes_run(field, value):
 @pytest.mark.parametrize("kw", [
     {"pad_multiple": 6}, {"pallas_chunk_bytes": 1000}, {"capacity": 0},
     {"bm_probes": "nope"}, {"emission": "dense"},
+    {"bm_variant": "skip"}, {"bm_chunk": 0},
 ])
 def test_bad_config_values_raise(kw):
     with pytest.raises(ValueError):

@@ -278,7 +278,7 @@ GATHER_PLANTS = [
 ]
 
 
-@pytest.mark.parametrize("mg", ["pselect", "blocks"])
+@pytest.mark.parametrize("mg", ["pselect", "blocks", "groups"])
 def test_multi_gather_modes_planted(mg):
     text = _planted(GATHER_N, GATHER_PLANTS, 88)
     rs = check_many(text, GATHER_PATS, algo="rabin_karp",
@@ -402,12 +402,13 @@ def test_mixed_lengths_other_algorithms_and_drain():
 
 
 @pytest.mark.parametrize("alphabet", ["binary", "dna", "english"])
-@pytest.mark.parametrize("mg", ["pselect", "blocks"])
+@pytest.mark.parametrize("mg", ["pselect", "blocks", "groups"])
 def test_fuzz_multi_pattern(mg, alphabet):
-    """Seeded fuzz over both modes (the JAX package's multi-gather fuzz, on
-    the kernel path): k patterns drawn from the text, so repetitive corpora
-    put several patterns in one block, plus same-block, seam and end
-    plants and a small capacity; against the oracle and the JAX package."""
+    """Seeded fuzz over the three modes (the JAX package's multi-gather
+    fuzz, on the kernel path): k patterns drawn from the text, so
+    repetitive corpora put several patterns in one block, plus same-block,
+    seam and end plants and a small capacity; against the oracle and the
+    JAX package."""
     rng = np.random.default_rng(10 * len(alphabet) + len(mg))
     gen = {"binary": gen_binary, "dna": gen_dna, "english": gen_english}[alphabet]
     n = TILE + int(rng.integers(0, 3 * 4096))
@@ -493,8 +494,9 @@ def test_constructor_errors_groups_mode_and_cache():
         RabinKarpMultiMatcher([b"ab", b"abc"], device="cpu")
     with pytest.raises(ValueError, match="empty"):
         RabinKarpMultiMatcher([b"", b""], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MatchConfig(multi_gather="groups")
+    assert [r.offsets_list() for r in match(
+        b"abcxyzabc", [b"abc", b"xyz"], algo="rk", device="cpu",
+        multi_gather="groups")] == [[0, 6], [3]]
     with pytest.raises(ValueError):
         MatchConfig(multi_gather="union")
     pats = [b"abc", b"xyz"]

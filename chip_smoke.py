@@ -53,6 +53,17 @@ source, in parallel), then:
     64, 256, sparse and 'nib'), compare-B through ``kmp_bsums`` /
     ``kmp_nib(..., pat_key=...)`` (m = 5, 16, 32) and Boyer-Moore with
     ``bm_variant='cursor'`` (256 MiB English, dense 64 MiB);
+(h) holds the ``exp/`` prototypes' kernels at 256 MiB on English, DNA and
+    UTF-8 (the corpus pattern, m=64 and m=509): K11a ``screen_cand_nibsums``
+    against its plain version and, per block, between K2's count and 4x
+    K1's; K11c (``exp.proto_kernels.proto_screen`` on the word and the
+    block view) against K11a; K11b (``exp.screen_kernel_opt.run_variant``
+    'v2' at R = 128, 256, 512) against K1; K11d ``gather_verify`` (cap_g
+    1024, 2048, 4096 and a list with fill ids) against its plain version
+    and K2's nibble plane on the listed groups; then drives the path
+    (``run_variant`` 'v1' and 'v2', ``exp.proto_kernels.gv_offsets``)
+    against the oracle, and on the dense 64 MiB text, whose occupied groups
+    outnumber cap_g, against the oracle on the listed groups;
 (e) times every kernel and its plain version with CUDA events (K9 beside
     K4 / K10a at the same m, K10c beside K6), ``match``
     per algorithm on a device-resident text (host clock, and device time
@@ -61,11 +72,18 @@ source, in parallel), then:
     K10b and K10c at 256 MiB and 1 GB, config 2's
     ``RabinKarpMultiMatcher.run`` on the device-resident 1 GB text (sparse
     'pselect', 'groups' and 'nib' in alternating passes) and from host
-    bytes, and the 'cursor' route on the device-resident 256 MiB text.
+    bytes, the 'cursor' route on the device-resident 256 MiB text, K11a
+    and K11d (each cap_g) beside their plain versions, and ``gv_offsets``
+    against ``BoyerMooreMatcher.run`` on the device-resident 256 MiB
+    English text in alternating passes, with their device time and events.
 
-The launch counters are zeroed before (b) and read after (f), and zeroed
-again before (g) and read after it: each kernel must have been launched by
-the main-path run that exercises it.  Prints the card's name and power
+The launch counters are zeroed before (b) and read after (f), zeroed again
+before (g) and read after it, and K1's, K11a's and K11d's zeroed before
+the path of (h) and read after it: each kernel must have been launched by
+the main-path run that exercises it.  Every printed line is flushed at
+once, so a failure leaves the lines before it and its traceback on
+stderr.  In a directory without the port (``chip_smoke.py`` alone) the
+script exits 1 at its first import of the repo, before printing a line.  Prints the card's name and power
 limit, one JSON line describing the kernels (with each one's bound: the
 larger of its bytes over the card's 3.35 TB/s and its integer operations
 over the INT32 instruction rate), and as the last line
@@ -236,6 +254,7 @@ def device_profile(fn, runs: int) -> tuple[float, float]:
 
 
 def main() -> int:
+    sys.stdout.reconfigure(line_buffering=True)
     import torch
 
     if not torch.cuda.is_available():
@@ -249,6 +268,10 @@ def main() -> int:
         MatchConfig,
         RabinKarpMultiMatcher,
         match,
+    )
+    from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.exp import (
+        proto_kernels,
+        screen_kernel_opt,
     )
     from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.kernels import (
         rk_roll,
@@ -341,7 +364,7 @@ def main() -> int:
     names = ("screen_cand_bsums", "naive_nib", "naive_bsums", "kmp_bsums",
              "rk_candidate_bsums", "rk_candidate_pmask", "screened_nib",
              "screened_bsums", "kmp_nib", "rk_candidate_nib", *K9_NAMES,
-             "rk_candidate_bmask")
+             "rk_candidate_bmask", "screen_cand_nibsums", "gather_verify")
     errs = dict.fromkeys(names, 0)
     lines = []
 
@@ -845,6 +868,134 @@ def main() -> int:
     print(f"opt-in-route launches (g): { {k: f.launches for k, f in kernels.items()} }, "
           f"K9 {k9_counts()}")
 
+    # -- (h) the exp/ prototypes: K11a-d, then their path --------------------
+    t_h = time.perf_counter()
+    group_bytes = 4 * swar.GROUP_WORDS
+    cap_gs = (1024, 2048, 4096)
+    lines = []
+    screens = {}  # (corpus, m): (K11a block sums, K1 block sums)
+    for name, (text, pat) in corpora.items():
+        n = len(text)
+        padded = on_card(name, text)
+        words = padded.view(torch.int32)
+        nb8 = words.numel() // swar.GROUP_WORDS
+        for p in (pat, long_pats[name][64], long_pats[name][509]):
+            m = len(p)
+            u = np.frombuffer(p, np.uint8)
+            Pp, Mp = (torch.from_numpy(a).to(dev) for a in swar.pattern_words(u))
+            lay = swar.static_probes_from_table(swar.probe_table(u, use_gs=True))
+            Nk, cut = swar.kernel_region(padded.numel(), m, cfg.pallas_chunk_bytes)
+            assert Nk == padded.numel(), "(h) the padded text is not whole tiles"
+            lim = min(n - m, cut - 1)
+            what = f"{name} m={m}"
+            got = swar.screen_cand_nibsums(words, lim, Pp, Mp, lay)
+            hold("screen_cand_nibsums", what, got,
+                 swar.screen_cand_nibsums_plain(words, lim, Pp, Mp, lay))
+            k1 = swar.screen_cand_bsums(words, lim, Pp, Mp, lay)
+            k2_nib, k2_bs = swar.naive_nib(words, lim, Pp, Mp)
+            assert bool((k2_bs <= got[0]).all()) and bool((got[0] <= 4 * k1).all()), (
+                f"(h) K11a outside [K2, 4 K1] on {what}")
+            screens[(name, m)] = (got[0], k1)
+            for view, blocks in ((words.view(-1, 1024), False), (words.view(-1, 128), True)):
+                c, b = proto_kernels.proto_screen(view, n, Pp, m, lay, from_blocks=blocks)
+                hold("screen_cand_nibsums", f"{what} K11c {('words', 'blocks')[blocks]} "
+                     f"vs K11a", (b, c), got)
+            for R in (128, 256, 512):
+                c, b = screen_kernel_opt.run_variant("v2", words, n, Pp, m, lay, R)
+                # Blocks before the last of the Nk(R) region see the same words.
+                same = b.numel() - (b.numel() < k1.numel())
+                hold("screen_cand_bsums", f"{what} K11b R={R} vs K1", b[:same], k1[:same])
+            rows = k2_nib.view(-1, 8, 128)
+            lists = [(f"cap_g={c}", proto_kernels.group_ids(got[0], c)) for c in cap_gs]
+            lists.append(("fill ids", torch.tensor([0, 5, 127, 128, nb8, nb8 - 1, nb8],
+                                                   dtype=torch.int32, device=dev)))
+            for tag, g8 in lists:
+                gv = swar.gather_verify(words, g8, n - m, Pp, Mp)
+                hold("gather_verify", f"{what} {tag}", gv,
+                     swar.gather_verify_plain(words, g8, n - m, Pp, Mp))
+                listed = g8 < nb8
+                want = torch.zeros_like(gv[0])
+                want[listed] = rows[g8[listed].long()]
+                hold("gather_verify", f"{what} {tag} vs K2 rows", gv[0], want)
+            occupied = int((got[0].view(-1, 8).sum(1) > 0).sum())
+            lines.append(f"  {what}: candidates {int(got[1])} (K1 words {int(k1.sum())}, "
+                         f"K2 starts {int(k2_bs.sum())}) in {occupied} groups")
+            del k2_nib, rows
+    print("(h) exp/ kernels bit-exact (tolerance 0): K11a vs plain, K11c (both views) "
+          "vs K11a, K11b (R=128/256/512) vs K1, K11d vs plain and K2's rows "
+          "(cap_g 1024/2048/4096 and a list with fill ids):")
+    for s in lines:
+        print(f"  {s}")
+
+    # The path: run_variant (V1, V2-V4) and gv_offsets, counters zeroed.
+    h_kernels = {"screen_cand_bsums": swar.screen_cand_bsums,
+                 "screen_cand_nibsums": swar.screen_cand_nibsums,
+                 "gather_verify": swar.gather_verify}
+    for f in h_kernels.values():
+        f.launches = 0
+    capacity = cfg.capacity
+
+    def check_gv(tag: str, text: bytes, p: bytes, dense: bool = False) -> bool:
+        """``gv_offsets`` at cap_g 4096 against the oracle; when the
+        occupied groups outnumber cap_g, against the oracle's starts in the
+        listed groups (count also against K2's block sums there).  Returns
+        whether every group was listed."""
+        n, m = len(text), len(p)
+        padded = on_card(tag, text)
+        words = padded.view(torch.int32)
+        u = np.frombuffer(p, np.uint8)
+        Pp = torch.from_numpy(swar.pattern_words(u)[0]).to(dev)
+        lay = swar.static_probes_from_table(swar.probe_table(u, use_gs=True))
+        cap_g = cap_gs[-1]
+        count, offs, overflow = proto_kernels.gv_offsets(words, n, Pp, m, lay, cap_g,
+                                                         capacity)
+        want = (np_find_all(np.frombuffer(text, np.uint8), p).tolist() if dense
+                else find_all(text, p))
+        bs = proto_kernels.proto_screen(words.view(-1, 1024), n, Pp, m, lay)[1]
+        occupied = int((bs.view(-1, 8).sum(1) > 0).sum())
+        whole = occupied <= cap_g
+        if not whole:
+            g8 = proto_kernels.group_ids(bs, cap_g)
+            listed = set(g8.tolist())
+            want = [s0 for s0 in want if s0 // group_bytes in listed]
+            k2_bs = swar.naive_nib(words, n - m, Pp,
+                                   torch.from_numpy(swar.mask_words(m)).to(dev))[1]
+            assert count == int(k2_bs.view(-1, 8)[g8.long()].sum()), (
+                f"(h) gv_offsets {tag} m={m}: count vs K2 on the listed groups")
+        assert count == len(want) and overflow == (len(want) > capacity), (
+            f"(h) gv_offsets {tag} m={m}: count {count} vs {len(want)}")
+        assert offs.tolist() == want[:capacity], f"(h) gv_offsets {tag} m={m}: offsets"
+        print(f"(h) gv_offsets {tag} m={m} cap_g={cap_g}: {occupied} occupied groups, "
+              f"count {count} == oracle{'' if whole else ' on the listed groups'}, "
+              f"first {min(count, capacity)} offsets equal, overflow {overflow}")
+        return whole
+
+    for name, (text, pat) in corpora.items():
+        n = len(text)
+        words = on_card(name, text).view(torch.int32)
+        for p in (pat, long_pats[name][64], long_pats[name][509]):
+            m = len(p)
+            u = np.frombuffer(p, np.uint8)
+            Pp = torch.from_numpy(swar.pattern_words(u)[0]).to(dev)
+            lay = swar.static_probes_from_table(swar.probe_table(u, use_gs=True))
+            k11a, k1 = screens[(name, m)]
+            assert torch.equal(screen_kernel_opt.run_variant("v1", words, n, Pp, m, lay)[1],
+                               k11a), f"(h) run_variant v1 {name} m={m}"
+            for R in (128, 256, 512):
+                b = screen_kernel_opt.run_variant("v2", words, n, Pp, m, lay, R)[1]
+                same = b.numel() - (b.numel() < k1.numel())
+                assert torch.equal(b[:same], k1[:same]), f"(h) run_variant v2 R={R} {name}"
+            whole = check_gv(name, text, p)
+            assert whole or name != "english" or m != len(pat), (
+                "(h) English m=16 did not fit in cap_g")
+    assert not check_gv("dense", dense_text, dense_pat, dense=True), (
+        "(h) the dense text did not outnumber cap_g")
+    launches_h = {k: f.launches for k, f in h_kernels.items()}
+    for k, v in launches_h.items():
+        assert v > 0, f"kernel {k} was not launched by the exp/ path"
+    launches.update({k: launches_h[k] for k in ("screen_cand_nibsums", "gather_verify")})
+    print(f"exp/ path launches (h): {launches_h} ({time.perf_counter() - t_h:.1f} s for (h))")
+
     # -- (e) timings ---------------------------------------------------------
     text, pat = corpora["english"]
     n = len(text)
@@ -976,6 +1127,25 @@ def main() -> int:
             cases[(k9, what)] = (
                 functools.partial(on_step, path, fn, region, n - m_, bt_, m_, pat_key=key),
                 functools.partial(plain, region, n - m_, bt_, m_), 1)
+    # K11a as K1 (its bound too); K11d at each cap_g on the groups of K11a's
+    # candidates, cap_g 4096 first (the JSON line's case).  K11d's bound:
+    # the listed groups read once with their halo, the ids read, the nibble
+    # rows and row counts written; K2's eight operations per verified word.
+    shapes[("screen_cand_nibsums", "m=16")] = (Nk + bsb + 4, words * 2 * n_probe)
+    cases[("screen_cand_nibsums", "m=16")] = (
+        lambda: swar.screen_cand_nibsums(region, limit, P, M, probes),
+        lambda: swar.screen_cand_nibsums_plain(region, limit, P, M, probes), 5)
+    assert Nk == padded.numel(), "(e) the padded text is not whole tiles"
+    bs_a = swar.screen_cand_nibsums(region, limit, P, M, probes)[0]
+    gv_ids = {c: proto_kernels.group_ids(bs_a, c) for c in (4096, 1024, 2048)}
+    for c, g8 in gv_ids.items():
+        listed = int((g8 < padded.numel() // group_bytes).sum())
+        shapes[("gather_verify", f"m=16 cap_g={c}")] = (
+            listed * (group_bytes + 4 * (nw - 1)) + c * (4 + group_bytes + 32) + 4,
+            listed * swar.GROUP_WORDS * 8)
+        cases[("gather_verify", f"m=16 cap_g={c}")] = (
+            functools.partial(swar.gather_verify, region, g8, limit, P, M),
+            functools.partial(swar.gather_verify_plain, region, g8, limit, P, M), 5)
     ms, plain_ms, bounds, shape = {}, {}, {}, {}
     for (k, what), (kern, plain, plain_iters) in cases.items():
         kt = cuda_ms(kern, 20)
@@ -983,9 +1153,12 @@ def main() -> int:
         b_ms, b_by = bound(*shapes[(k, what)])
         if k not in ms:  # the JSON line reports each kernel's first case
             ms[k], plain_ms[k], bounds[k], shape[k] = kt, pt, (b_ms, b_by), what
+        # Text bytes per second; K11d reads only its groups: bytes it moves.
+        rate = (f"{Nk / kt / 1e6:.1f} GB/s kernel" if k != "gather_verify" else
+                f"{shapes[(k, what)][0] / kt / 1e6:.1f} GB/s moved")
         print(f"(e) {k} 256 MiB english {what}: kernel {kt:.4f} ms, plain "
               f"{pt:.4f} ms, bound {b_ms:.4f} ms by {b_by} ({b_ms / kt:.3f} of it), "
-              f"{Nk / kt / 1e6:.1f} GB/s kernel {card}")
+              f"{rate} {card}")
         torch.cuda.empty_cache()
 
     # Device-resident run per algorithm, sparse and nib in alternating passes.
@@ -1097,6 +1270,41 @@ def main() -> int:
           f"{per_run:.0f} device events/run, idle share "
           f"{1 - dev_ms / statistics.median(run_ms):.3f} of the median pass {card}")
 
+    # A K11d call is a memset and a kernel of a few microseconds each, so
+    # its event time above is the host's launch path: the device's share.
+    for c, g8 in gv_ids.items():
+        dev_ms, per_run = device_profile(functools.partial(
+            swar.gather_verify, region, g8, limit, P, M), runs=20)
+        print(f"(e) gather_verify m=16 cap_g={c}: device {dev_ms:.4f} ms per call in "
+              f"{per_run:.0f} device events (memset, kernel) {card}")
+
+    # The exp/ path: the reference's "kernel+gids" (group ids and K11d) and
+    # "full recon" (and the decode) per cap_g, then gv_offsets (screen
+    # included) against BoyerMooreMatcher.run in alternating passes.
+    bmr = BoyerMooreMatcher(pat, cfg, device=dev)
+    for c in cap_gs:
+        tk = cuda_ms(functools.partial(proto_kernels.verify_groups, region, bs_a, n, P,
+                                       bmr.m, c, None), 20)
+        tf = cuda_ms(functools.partial(proto_kernels.verify_groups, region, bs_a, n, P,
+                                       bmr.m, c, cfg.capacity), 20)
+        print(f"(e) exp/ path 256 MiB english m=16 cap_g={c}: kernel+gids {tk:.4f} ms, "
+              f"full recon {tf:.4f} ms {card}")
+    paths = {"BoyerMooreMatcher.run": lambda: bmr.run(padded, n),
+             "gv_offsets cap_g=4096": functools.partial(
+                 proto_kernels.gv_offsets, region, n, P, bmr.m, probes, 4096, cfg.capacity)}
+    assert paths["gv_offsets cap_g=4096"]()[1].tolist() == find_all(text, pat)[: cfg.capacity]
+    passes = {k: [] for k in paths}
+    for _ in range(3):
+        for k, f in paths.items():
+            passes[k] += host_ms(f, iters=10, passes=1)
+    for k, f in paths.items():
+        dev_ms, per_run = device_profile(f, runs=5)
+        med = statistics.median(passes[k])
+        print(f"(e) {k} device-resident 256 MiB english m=16: passes "
+              f"{[round(x, 4) for x in passes[k]]} ms, median {med:.4f} ms; profiler: "
+              f"device {dev_ms:.4f} ms/run, {per_run:.0f} device events/run, idle share "
+              f"{1 - dev_ms / med:.3f} of the median pass {card}")
+
     assert "jax" not in sys.modules, "the port imported jax"
     sources = {"screen_cand_bsums": ("swar.cu", "kernels/swar.py:477"),
                "naive_nib": ("swar.cu", "kernels/swar.py:386"),
@@ -1123,12 +1331,18 @@ def main() -> int:
                "kmp_nib_compare_b": ("shift_and.cu", "kernels/shift_and.py:316 "
                                      "lookup_compare (emit='nib', pat_key)"),
                "rk_candidate_bmask": ("rk_roll.cu", "kernels/rk_roll.py:93 emit='bmask' + "
-                                      f"{REF}/kernels/shift_and.py:224")}
+                                      f"{REF}/kernels/shift_and.py:224"),
+               "screen_cand_nibsums": ("swar.cu", "exp/screen_kernel_opt.py:91 _v1_kernel "
+                                       "(pallas_call :180) + exp/proto_kernels.py:60 "
+                                       "_proto_screen_kernel (pallas_call :122)"),
+               "gather_verify": ("swar.cu", "exp/proto_kernels.py:157 _gv_kernel "
+                                 "(pallas_call :227)")}
     print(nvidia_smi())
     # No single PyTorch call computes any of these functions: library_ms null.
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": f"{PKG}/csrc/{src}",
-         "replaces": f"{REF}/{ref}", "launches": launches[k],
+         "replaces": ref if ref.startswith("exp/") else f"{REF}/{ref}",
+         "launches": launches[k],
          "max_abs_err": errs[k], "ms": ms[k], "plain_ms": plain_ms[k],
          "bound_ms": bounds[k][0], "bound_by": bounds[k][1], "library_ms": None,
          "shape": f"256 MiB english {shape[k]}"}

@@ -9,7 +9,8 @@
 // where P[a] is the pattern placed at byte offset a of a zeroed buffer and
 // M[a] its byte-occupancy mask (kernels/swar.py pattern_words).  All
 // kernels run one thread per text word and 128 threads per block, so one
-// CUDA block owns one 512-byte output block.  Words at or past n_words (the
+// CUDA block owns one 512-byte output block (the gather-verify kernel's
+// block walks the eight blocks of a 4 KiB group).  Words at or past n_words (the
 // end of the kernel region) read as 0; a thread reads word w + k straight
 // from global memory, and the neighbouring threads of a warp read
 // neighbouring words, so every load instruction is one coalesced 128-byte
@@ -25,9 +26,27 @@ namespace {
 using tpm::kBlockWords;
 using tpm::load_word;
 
+constexpr int kGroupWords = 8 * kBlockWords;  // one 4 KiB group of K11d
+
 struct Probes {
   int k[4][2];  // probe word index per alignment (a pair may repeat one word)
 };
+
+// Whether both probe words of alignment a compare equal under their masks
+// at word w (K1's probe compare).
+__device__ __forceinline__ bool probe_hit(const uint32_t* __restrict__ words,
+                                          long long w, long long n_words,
+                                          const uint32_t* __restrict__ P,
+                                          const uint32_t* __restrict__ M,
+                                          int nw, const Probes& pr, int a) {
+  const int k0 = pr.k[a][0];
+  const int k1 = pr.k[a][1];
+  const uint32_t x0 = load_word(words, w + k0, n_words);
+  const uint32_t x1 = load_word(words, w + k1, n_words);
+  const bool h0 = (x0 & __ldg(M + a * nw + k0)) == __ldg(P + a * nw + k0);
+  const bool h1 = (x1 & __ldg(M + a * nw + k1)) == __ldg(P + a * nw + k1);
+  return h0 & h1;
+}
 
 // Replaces kernels/swar.py::_screen_cand_kernel (Pallas, TPU).
 //
@@ -52,15 +71,8 @@ screen_cand_kernel(const uint32_t* __restrict__ words, long long n_words,
   const long long w = (long long)blockIdx.x * kBlockWords + threadIdx.x;
   int cand = 0;
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int k0 = pr.k[a][0];
-    const int k1 = pr.k[a][1];
-    const uint32_t x0 = load_word(words, w + k0, n_words);
-    const uint32_t x1 = load_word(words, w + k1, n_words);
-    const bool h0 = (x0 & __ldg(M + a * nw + k0)) == __ldg(P + a * nw + k0);
-    const bool h1 = (x1 & __ldg(M + a * nw + k1)) == __ldg(P + a * nw + k1);
-    cand |= (int)(h0 & h1);
-  }
+  for (int a = 0; a < 4; ++a)
+    cand |= (int)probe_hit(words, w, n_words, P, M, nw, pr, a);
   if (4 * w > n_lim) cand = 0;
   const int count = __syncthreads_count(cand);
   if (threadIdx.x == 0) bs[blockIdx.x] = count;
@@ -92,18 +104,19 @@ __device__ __forceinline__ bool verify_alignment(
 }
 
 // Clears bit a of a word's nibble unless 4w + a <= n_lim (validity per
-// ALIGNMENT, as the reference's _validity_nibble), stores the nibble when
-// kEmitNib, and writes the popcount of the CUDA block's 128 nibbles (its
-// exact match count) to bs[blockIdx.x].
+// ALIGNMENT, as the reference's _validity_nibble), stores the nibble at
+// *nib_at when kEmitNib, and writes the popcount of the CUDA block's 128
+// nibbles (its exact match count) to *bs_at.  Returns that popcount in
+// thread 0 (0 in the others).  The partial sums sit in shared memory, so a
+// block that emits again passes a __syncthreads() first.
 template <bool kEmitNib>
-__device__ __forceinline__ void emit_nibble(int bits, long long w,
-                                            long long n_lim,
-                                            int* __restrict__ nib,
-                                            int* __restrict__ bs) {
+__device__ __forceinline__ int emit_nibble(int bits, long long w,
+                                           long long n_lim, int* nib_at,
+                                           int* bs_at) {
   long long keep = n_lim - 4 * w + 1;
   keep = keep < 0 ? 0 : (keep > 4 ? 4 : keep);
   bits &= (1 << (int)keep) - 1;
-  if (kEmitNib) nib[w] = bits;
+  if (kEmitNib) *nib_at = bits;
 
   int c = __popc(bits);
 #pragma unroll
@@ -111,12 +124,13 @@ __device__ __forceinline__ void emit_nibble(int bits, long long w,
   __shared__ int warp_sums[kBlockWords / 32];
   if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = c;
   __syncthreads();
+  int s = 0;
   if (threadIdx.x == 0) {
-    int s = 0;
 #pragma unroll
     for (int i = 0; i < kBlockWords / 32; ++i) s += warp_sums[i];
-    bs[blockIdx.x] = s;
+    *bs_at = s;
   }
+  return s;
 }
 
 // Exact verify of every start.  kEmitNib = true replaces
@@ -148,7 +162,8 @@ naive_kernel(const uint32_t* __restrict__ words, long long n_words,
   int bits = 0;
   for (int a = 0; a < 4; ++a)
     bits |= (int)verify_alignment(words, w, n_words, pm, nw, a) << a;
-  emit_nibble<kEmitNib>(bits, w, n_lim, nib, bs);
+  emit_nibble<kEmitNib>(bits, w, n_lim, kEmitNib ? nib + w : nullptr,
+                        bs + blockIdx.x);
 }
 
 // Boyer-Moore screen, then exact verify (K7 and K8).  Replaces
@@ -193,7 +208,85 @@ screened_kernel(const uint32_t* __restrict__ words, long long n_words,
     if (h0 && h1)
       bits |= (int)verify_alignment(words, w, n_words, pm, nw, a) << a;
   }
-  emit_nibble<kEmitNib>(bits, w, n_lim, nib, bs);
+  emit_nibble<kEmitNib>(bits, w, n_lim, kEmitNib ? nib + w : nullptr,
+                        bs + blockIdx.x);
+}
+
+// Replaces exp/screen_kernel_opt.py::_v1_kernel (K11a) and
+// exp/proto_kernels.py::_proto_screen_kernel (K11c).
+//
+// K1's probe screen with the reference's full epilogue (swar._epilogue)
+// in place of K1's count of candidate words: bit a of a word's nibble is
+// set when both probe words of alignment a compare equal, bits with
+// 4w + a > n_lim are cleared (emit_nibble), and bs[block] is the block's
+// count of (word, alignment) candidates.  Thread 0 of each CUDA block adds
+// that count to *total, which the C entry zeroes, giving the reference's
+// cnt in the same pass.  The reference's narrow halo roll (K11a) and its
+// (L, 1024) word and (nb, 128) block feeds (K11c) are TPU layout: here both
+// feeds are one flat word array, and the words after a block are simply the
+// next words.
+//
+// Bound on the H100: one read of the region, as K1 (about 80 us for 256 MiB
+// at 3.35 TB/s).  The design is K1's stream; the nibble stays in a register
+// and only the block sum and one atomic per 512 bytes are written.
+__global__ void __launch_bounds__(kBlockWords)
+screen_cand_nib_kernel(const uint32_t* __restrict__ words, long long n_words,
+                       long long n_lim, const uint32_t* __restrict__ P,
+                       const uint32_t* __restrict__ M, int nw, Probes pr,
+                       int* __restrict__ bs, int* __restrict__ total) {
+  const long long w = (long long)blockIdx.x * kBlockWords + threadIdx.x;
+  int bits = 0;
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+    bits |= (int)probe_hit(words, w, n_words, P, M, nw, pr, a) << a;
+  const int s = emit_nibble<false>(bits, w, n_lim, nullptr, bs + blockIdx.x);
+  if (threadIdx.x == 0 && s != 0) atomicAdd(total, s);
+}
+
+// Replaces exp/proto_kernels.py::_gv_kernel (K11d).
+//
+// Gather-verify over listed 4 KiB groups: CUDA block i takes group id
+// g8[i] and runs K2's exact verify (verify_alignment, all four alignments)
+// on the group's 8 rows of 128 words, one row per pass of its 128 threads,
+// one thread per word.  Row r of the group is nib[i][r][*], its popcount
+// bsr[8i + r], and thread 0 adds the group's count to *total (zeroed by the
+// C entry).  The reference gathers each group and its successor's first
+// row through scalar-prefetched block specs; here a group's words are read
+// straight from the text, so the halo is simply the words that follow.
+// Validity is per alignment from the UNCLAMPED id: the word at (r, c) is
+// w = g8 * 1024 + 128 r + c, its starts 4w + a are kept when <= n_lim.  An
+// id outside [0, n_words / 1024) (the fill id n_words / 1024 among them)
+// reads no word and yields zero rows; words past the text read as 0, which
+// no start <= n_lim <= 4 n_words - m reaches.
+//
+// Bound on the H100: the listed groups read once (4 KiB each, plus the
+// halo) and their nibble planes written once (4 KiB each): about 11 us for
+// 4096 groups at 3.35 TB/s.  A CUDA block per group keeps the gather
+// coalesced: each row is one 512-byte line per warp group, like K2's.
+__global__ void __launch_bounds__(kBlockWords)
+gather_verify_kernel(const uint32_t* __restrict__ words, long long n_words,
+                     long long n_lim, const int* __restrict__ g8,
+                     const uint32_t* __restrict__ P,
+                     const uint32_t* __restrict__ M, int nw,
+                     int* __restrict__ nib, int* __restrict__ bsr,
+                     int* __restrict__ total) {
+  extern __shared__ uint32_t pm[];
+  stage_pattern(P, M, nw, pm);
+  const long long g = g8[blockIdx.x];
+  const bool listed = g >= 0 && g < n_words / kGroupWords;
+  int sum = 0;
+  for (int r = 0; r < 8; ++r) {
+    const long long w = g * kGroupWords + r * kBlockWords + threadIdx.x;
+    const long long row = (long long)blockIdx.x * 8 + r;
+    int bits = 0;
+    if (listed)
+      for (int a = 0; a < 4; ++a)
+        bits |= (int)verify_alignment(words, w, n_words, pm, nw, a) << a;
+    sum += emit_nibble<true>(bits, w, n_lim, nib + row * kBlockWords + threadIdx.x,
+                             bsr + row);
+    __syncthreads();  // emit_nibble's partial sums are reused by the next row
+  }
+  if (threadIdx.x == 0 && sum != 0) atomicAdd(total, sum);
 }
 
 int check_args(long long n_words, int nw) {
@@ -216,14 +309,19 @@ int launch_naive(const void* words, long long n_words, long long n_lim,
   return (int)cudaGetLastError();
 }
 
+int check_probes(const Probes& pr, int nw) {
+  for (int a = 0; a < 4; ++a)
+    for (int s = 0; s < 2; ++s)
+      if (pr.k[a][s] < 0 || pr.k[a][s] >= nw) return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
 template <bool kEmitNib>
 int launch_screened(const void* words, long long n_words, long long n_lim,
                     const void* P, const void* M, int nw, const Probes& pr,
                     void* nib, void* bs, void* stream) {
   if (int err = check_args(n_words, nw)) return err;
-  for (int a = 0; a < 4; ++a)
-    for (int s = 0; s < 2; ++s)
-      if (pr.k[a][s] < 0 || pr.k[a][s] >= nw) return (int)cudaErrorInvalidValue;
+  if (int err = check_probes(pr, nw)) return err;
   const long long blocks = n_words / kBlockWords;
   if (blocks == 0) return 0;
   const size_t smem = 2 * 4 * (size_t)nw * sizeof(uint32_t);
@@ -288,6 +386,46 @@ int tpm_screened_bsums(const void* words, long long n_words, long long n_lim,
   const Probes pr = {{{k00, k01}, {k10, k11}, {k20, k21}, {k30, k31}}};
   return launch_screened<false>(words, n_words, n_lim, P, M, nw, pr, nullptr,
                                 bs, stream);
+}
+
+// K11a/K11c: probe indices as in tpm_screen_cand_bsums, each in [0, nw).
+// bs must hold n_words / 128 ints and total one int, which is zeroed here.
+int tpm_screen_cand_nibsums(const void* words, long long n_words,
+                            long long n_lim, const void* P, const void* M,
+                            int nw, int k00, int k01, int k10, int k11,
+                            int k20, int k21, int k30, int k31, void* bs,
+                            void* total, void* stream) {
+  const Probes pr = {{{k00, k01}, {k10, k11}, {k20, k21}, {k30, k31}}};
+  if (int err = check_args(n_words, nw)) return err;
+  if (int err = check_probes(pr, nw)) return err;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (cudaError_t err = cudaMemsetAsync(total, 0, sizeof(int), s)) return (int)err;
+  const long long blocks = n_words / kBlockWords;
+  if (blocks == 0) return 0;
+  screen_cand_nib_kernel<<<(unsigned)blocks, kBlockWords, 0, s>>>(
+      (const uint32_t*)words, n_words, n_lim, (const uint32_t*)P,
+      (const uint32_t*)M, nw, pr, (int*)bs, (int*)total);
+  return (int)cudaGetLastError();
+}
+
+// K11d: words holds whole 4 KiB groups (n_words a multiple of 1024), g8 the
+// n_ids int32 group ids.  nib must hold n_ids * 1024 ints, bsr n_ids * 8
+// and total one int, which is zeroed here.
+int tpm_gather_verify(const void* words, long long n_words, long long n_lim,
+                      const void* g8, long long n_ids, const void* P,
+                      const void* M, int nw, void* nib, void* bsr, void* total,
+                      void* stream) {
+  if (n_words % kGroupWords != 0 || nw < 1 || n_ids < 0 || n_ids > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (cudaError_t err = cudaMemsetAsync(total, 0, sizeof(int), s)) return (int)err;
+  if (n_ids == 0) return 0;
+  const size_t smem = 2 * 4 * (size_t)nw * sizeof(uint32_t);
+  gather_verify_kernel<<<(unsigned)n_ids, kBlockWords, smem, s>>>(
+      (const uint32_t*)words, n_words, n_lim, (const int*)g8,
+      (const uint32_t*)P, (const uint32_t*)M, nw, (int*)nib, (int*)bsr,
+      (int*)total);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -9,7 +9,7 @@ match starting at byte 4w + a satisfies
 where P[a]/M[a] are the pattern placed at byte offset a in a zeroed word
 buffer and its 0xFF byte-occupancy mask.
 
-Five kernel wrappers (``csrc/swar.cu``), each with a plain PyTorch version
+Seven kernel wrappers (``csrc/swar.cu``), each with a plain PyTorch version
 in this module and a launch counter (``<wrapper>.launches``):
 
 - ``screen_cand_bsums`` (K1): the Boyer-Moore probe screen, candidate words
@@ -21,7 +21,12 @@ in this module and a launch counter (``<wrapper>.launches``):
 - ``screened_nib`` and ``screened_bsums`` (K7, and K8 with the
   ``bm_probes='table_dyn'`` probes): the probe screen, then the exact
   verify of the words with a probe hit, with and without the nibble plane.
-  Their results equal ``naive_nib``'s and ``naive_bsums``'s.
+  Their results equal ``naive_nib``'s and ``naive_bsums``'s;
+- ``screen_cand_nibsums`` (K11a, K11c): the probe screen with a count of
+  (word, alignment) candidates per block and in total, the screen of the
+  ``exp/`` prototypes;
+- ``gather_verify`` (K11d): ``naive_nib``'s exact verify of listed 4 KiB
+  groups only, their nibble rows, per-row counts and total.
 
 A wrapper runs the plain version for a CPU tensor and launches the kernel
 for a CUDA tensor; there is no other route.  All emit block sums in byte
@@ -40,6 +45,7 @@ HALO_WORDS = 128          # the reference's 512-byte chunk halo
 MAX_PATTERN = HALO_WORDS * 4 - 3  # 509: kernel-path bound shared with it
 BLOCK_WORDS = 128         # words per 512-byte block sum
 BLOCK_BYTES = 4 * BLOCK_WORDS
+GROUP_WORDS = 8 * BLOCK_WORDS  # words per 4 KiB group of gather_verify
 
 
 def swar_supported(m: int) -> bool:
@@ -181,6 +187,8 @@ _SIGNATURES = {
     "tpm_naive_bsums": [PTR, I64, I64, PTR, PTR, INT, PTR],
     "tpm_screened_nib": _PROBED + [PTR, PTR],
     "tpm_screened_bsums": _PROBED + [PTR],
+    "tpm_screen_cand_nibsums": _PROBED + [PTR, PTR],
+    "tpm_gather_verify": [PTR, I64, I64, PTR, I64, PTR, PTR, INT, PTR, PTR, PTR],
 }
 
 
@@ -229,16 +237,33 @@ def _check_probes(probes, nw: int) -> list:
     return [int(k) for pair in probes for k in (pair[0], pair[-1])]
 
 
-def screen_cand_bsums_plain(words, n_lim: int, P, M, probes) -> torch.Tensor:
-    """Plain PyTorch version of ``screen_cand_bsums`` (same contract)."""
+def _probe_hits(words, P, M, probes) -> list:
+    """Per alignment a, bool[Nw]: every probe word of a compares equal
+    under its mask at word w."""
     n = words.numel()
     ext = _shifted(words, P.shape[1])
-    cand = torch.zeros(n, dtype=torch.bool, device=words.device)
+    hits = []
     for a, ks in enumerate(probes):
         acc = None
         for k in ks:
             eq = (ext[k : k + n] & M[a, k]) == P[a, k]
             acc = eq if acc is None else acc & eq
+        hits.append(acc)
+    return hits
+
+
+def _valid_nibbles(nib, w, n_lim: int):
+    """``nib`` with bit a of the nibble of word ``w`` (int64 word indices,
+    one per nibble) cleared unless 4w + a <= n_lim."""
+    keep = (n_lim - 4 * w + 1).clamp(0, 4)
+    return nib & ((1 << keep) - 1).to(torch.int32)
+
+
+def screen_cand_bsums_plain(words, n_lim: int, P, M, probes) -> torch.Tensor:
+    """Plain PyTorch version of ``screen_cand_bsums`` (same contract)."""
+    n = words.numel()
+    cand = torch.zeros(n, dtype=torch.bool, device=words.device)
+    for acc in _probe_hits(words, P, M, probes):
         cand |= acc
     pos = 4 * torch.arange(n, dtype=torch.int64, device=words.device)
     cand &= pos <= n_lim
@@ -289,9 +314,7 @@ def naive_nib_plain(words, n_lim: int, P, M):
             # Words the pattern does not touch have M = P = 0: always true.
             acc &= (ext[k : k + n] & M[a, k]) == P[a, k]
         nib |= acc.to(torch.int32) << a
-    pos = 4 * torch.arange(n, dtype=torch.int64, device=words.device)
-    keep = (n_lim - pos + 1).clamp(0, 4)
-    nib &= ((1 << keep) - 1).to(torch.int32)
+    nib = _valid_nibbles(nib, torch.arange(n, device=words.device), n_lim)
     return nib, popcount4(nib).view(-1, BLOCK_WORDS).sum(1, dtype=torch.int32)
 
 
@@ -409,6 +432,118 @@ def screened_bsums(words: torch.Tensor, n_lim: int, P: torch.Tensor,
 
 
 screened_bsums.launches = 0
+
+
+def screen_cand_nibsums_plain(words, n_lim: int, P, M, probes):
+    """Plain PyTorch version of ``screen_cand_nibsums`` (same contract)."""
+    nib = torch.zeros(words.numel(), dtype=torch.int32, device=words.device)
+    for a, acc in enumerate(_probe_hits(words, P, M, probes)):
+        nib |= acc.to(torch.int32) << a
+    nib = _valid_nibbles(nib, torch.arange(words.numel(), device=words.device),
+                         n_lim)
+    bs = popcount4(nib).view(-1, BLOCK_WORDS).sum(1, dtype=torch.int32)
+    return bs, bs.sum(dtype=torch.int32)
+
+
+def screen_cand_nibsums(words: torch.Tensor, n_lim: int, P: torch.Tensor,
+                        M: torch.Tensor, probes) -> tuple[torch.Tensor, torch.Tensor]:
+    """K11a/K11c, the probe screen of the ``exp/`` prototypes: K1's probe
+    compares with the reference's full epilogue.
+
+    Arguments as ``screen_cand_bsums``.  Returns (bs int32[Nw/128], total
+    int32 scalar tensor): bit a of a word's candidate nibble is set when
+    alignment a's probe words all compare equal, kept only where
+    4w + a <= n_lim (validity per alignment); bs counts the (word,
+    alignment) candidates per 512-byte block and total sums them.  Replaces
+    ``exp/screen_kernel_opt.py::_v1_kernel`` and
+    ``exp/proto_kernels.py::_proto_screen_kernel`` (csrc/swar.cu notes what
+    bounds it)."""
+    _check(words, P, M)
+    ks = _check_probes(probes, P.shape[1])
+    if words.device.type == "cpu":
+        return screen_cand_nibsums_plain(words, n_lim, P, M, probes)
+    bs = torch.empty(words.numel() // BLOCK_WORDS, dtype=torch.int32,
+                     device=words.device)
+    total = torch.empty((), dtype=torch.int32, device=words.device)
+    _launch("tpm_screen_cand_nibsums", words.device, words.data_ptr(),
+            words.numel(), int(n_lim), P.data_ptr(), M.data_ptr(), P.shape[1],
+            *ks, bs.data_ptr(), total.data_ptr())
+    screen_cand_nibsums.launches += 1
+    return bs, total
+
+
+screen_cand_nibsums.launches = 0
+
+
+def _check_group_ids(words: torch.Tensor, g8: torch.Tensor) -> None:
+    if words.numel() % GROUP_WORDS:
+        raise ValueError(
+            f"words must hold whole {GROUP_WORDS}-word groups, got "
+            f"{words.numel()} words"
+        )
+    if g8.dtype != torch.int32 or g8.dim() != 1 or not g8.is_contiguous():
+        raise ValueError(
+            f"group ids must be contiguous 1-D int32, got {g8.dtype} "
+            f"{tuple(g8.shape)}"
+        )
+    if g8.device != words.device:
+        raise ValueError(f"group ids are on {g8.device}, words on {words.device}")
+
+
+def gather_verify_plain(words, g8, n_lim: int, P, M):
+    """Plain PyTorch version of ``gather_verify`` (same contract)."""
+    g = g8.to(torch.int64)
+    listed = (g >= 0) & (g < words.numel() // GROUP_WORDS)
+    w = g[:, None] * GROUP_WORDS + torch.arange(GROUP_WORDS, device=words.device)
+    src = torch.where(listed[:, None], w, 0)  # ids not listed read nothing
+    ext = _shifted(words, P.shape[1])
+    accs = [torch.ones(w.shape, dtype=torch.bool, device=words.device)
+            for _ in range(4)]
+    for k in range(P.shape[1]):
+        x = ext[src + k]
+        for a in range(4):
+            # Words the pattern does not touch have M = P = 0: always true.
+            accs[a] &= (x & M[a, k]) == P[a, k]
+    nib = torch.zeros(w.shape, dtype=torch.int32, device=words.device)
+    for a, acc in enumerate(accs):
+        nib |= (acc & listed[:, None]).to(torch.int32) << a
+    nib = _valid_nibbles(nib, w, n_lim)
+    bsr = popcount4(nib).view(-1, BLOCK_WORDS).sum(1, dtype=torch.int32)
+    return nib.view(-1, 8, BLOCK_WORDS), bsr, bsr.sum(dtype=torch.int32)
+
+
+def gather_verify(words: torch.Tensor, g8: torch.Tensor, n_lim: int,
+                  P: torch.Tensor, M: torch.Tensor):
+    """K11d, the exact verify of listed 4 KiB groups of the text.
+
+    ``words``: int32[Nw], the text's words, Nw a multiple of 1024 (whole
+    groups); ``g8``: int32[G] group ids, group g holding words
+    1024g..1024g+1023; ``n_lim``: the largest valid start byte; ``P``/``M``
+    as ``naive_nib``.  Returns (nib int32[G, 8, 128], bsr int32[8G], total
+    int32 scalar tensor): row r of nib[i] is ``naive_nib``'s nibble plane of
+    block 8 g8[i] + r (bit a of word c = match at byte
+    4096 g8[i] + 512 r + 4c + a, kept only where that is <= n_lim), bsr
+    its popcounts and total their sum.  An id outside [0, Nw/1024), such
+    as the fill id Nw/1024, gives zero rows.  Replaces
+    ``exp/proto_kernels.py::_gv_kernel`` (csrc/swar.cu notes what bounds
+    it)."""
+    _check(words, P, M)
+    _check_group_ids(words, g8)
+    if words.device.type == "cpu":
+        return gather_verify_plain(words, g8, n_lim, P, M)
+    n_ids = g8.numel()
+    nib = torch.empty((n_ids, 8, BLOCK_WORDS), dtype=torch.int32,
+                      device=words.device)
+    bsr = torch.empty(n_ids * 8, dtype=torch.int32, device=words.device)
+    total = torch.empty((), dtype=torch.int32, device=words.device)
+    _launch("tpm_gather_verify", words.device, words.data_ptr(), words.numel(),
+            int(n_lim), g8.data_ptr(), n_ids, P.data_ptr(), M.data_ptr(),
+            P.shape[1], nib.data_ptr(), bsr.data_ptr(), total.data_ptr())
+    gather_verify.launches += 1
+    return nib, bsr, total
+
+
+gather_verify.launches = 0
 
 
 def pack_nibbles(mask: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,9 @@
-"""PyTorch port on the card: the CUDA kernels (K1-K10c) against their
+"""PyTorch port on the card: the CUDA kernels (K1-K11d) against their
 plain versions and against the ported kernel with the same answer, and
 ``match()`` of every algorithm, of every ``emission``, Boyer-Moore screen,
 probe mode and variant, of KMP's composed step, and of pattern lists under
-every ``multi_gather``, against the oracle.  Every test here is marked
+every ``multi_gather``, and the ``exp/`` gather-verify path, against the
+oracle.  Every test here is marked
 ``cuda`` and skips without a GPU.
 
 This file imports neither jax nor the JAX package, so it also runs on a
@@ -501,3 +502,100 @@ def test_cursor_match_end_to_end(cuda_device):
     assert offsets.is_cuda and count == len(find_all(text, b"quick brown fox "))
     r = match(text, b"the ", config=cfg, drain=True)
     assert r.offsets_list() == find_all(text, b"the ")
+
+
+@pytest.mark.parametrize("pat", PATTERNS, ids=lambda p: f"m{len(p)}")
+@pytest.mark.parametrize("n", [3 * TILE + 1234, 4 * TILE], ids=["n<Nk", "n=Nk"])
+def test_exp_kernels_bit_exact_against_plain(pat, n, cuda_device):
+    """K11a and K11d equal their plain versions (tolerance 0); per block
+    K2's count <= K11a's <= 4 K1's; K11d's rows are K2's nibble plane on
+    the listed groups and zero for fill ids; each launch counts once."""
+    words, limit, P, M = _region(n, pat, cuda_device)
+    probes = swar.static_probes_from_table(
+        swar.probe_table(np.frombuffer(pat, np.uint8), use_gs=True))
+    before = (swar.screen_cand_nibsums.launches, swar.gather_verify.launches)
+    bs, total = swar.screen_cand_nibsums(words, limit, P, M, probes)
+    nb8 = words.numel() // swar.GROUP_WORDS
+    g8 = torch.tensor([0, 1, 127, 128, 301, nb8 - 1, nb8, nb8], dtype=torch.int32,
+                      device=cuda_device)
+    nib, bsr, cnt = swar.gather_verify(words, g8, limit, P, M)
+    torch.cuda.synchronize()
+    assert (swar.screen_cand_nibsums.launches,
+            swar.gather_verify.launches) == (before[0] + 1, before[1] + 1)
+    bs_p, total_p = swar.screen_cand_nibsums_plain(words, limit, P, M, probes)
+    assert torch.equal(bs, bs_p) and int(total) == int(total_p) == int(bs.sum())
+    k1 = swar.screen_cand_bsums(words, limit, P, M, probes)
+    k2_nib, k2_bs = swar.naive_nib(words, limit, P, M)
+    assert bool((k2_bs <= bs).all()) and bool((bs <= 4 * k1).all())
+    want = swar.gather_verify_plain(words, g8, limit, P, M)
+    assert all(torch.equal(a, b) for a, b in zip((nib, bsr, cnt), want))
+    rows = k2_nib.view(-1, 8, 128)
+    for i, g in enumerate(g8.tolist()):
+        assert torch.equal(nib[i], rows[g] if g < nb8 else torch.zeros_like(nib[i]))
+    assert int(cnt) == int(bsr.sum())
+
+
+@pytest.mark.parametrize("R", [128, 256, 512])
+def test_exp_screen_variants_on_their_regions(R, cuda_device):
+    """K11b is K1 on its Nk(R) region; K11a (run_variant 'v1') and K11c
+    (proto_screen on both views) equal K11a's plain version."""
+    from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.exp import (
+        proto_kernels,
+        screen_kernel_opt,
+    )
+
+    pat = b"quick brown fox "
+    m = len(pat)
+    words, _, P, M = _region(5 * TILE, pat, cuda_device)
+    probes = swar.static_probes_from_table(
+        swar.probe_table(np.frombuffer(pat, np.uint8), use_gs=True))
+    n = 5 * TILE - 100
+    Nk = (5 * TILE // (R * 4096)) * R * 4096
+    k1 = swar.screen_cand_bsums.launches
+    cnt, bs = screen_kernel_opt.run_variant("v2", words, n, P, m, probes, R)
+    assert swar.screen_cand_bsums.launches == k1 + 1
+    region = words[: Nk // 4]
+    lim = min(n, Nk) - m
+    assert torch.equal(bs, swar.screen_cand_bsums_plain(region, lim, P, M, probes))
+    assert int(cnt) == int(bs.sum())
+    cnt1, bs1 = screen_kernel_opt.run_variant("v1", words, n, P, m, probes, R)
+    assert torch.equal(bs1, swar.screen_cand_nibsums_plain(region, lim, P, M, probes)[0])
+    if R == 128:
+        for view, blocks in ((words.view(-1, 1024), False), (words.view(-1, 128), True)):
+            c, b = proto_kernels.proto_screen(view, n, P, m, probes, from_blocks=blocks)
+            assert torch.equal(b, bs1) and int(c) == int(cnt1)
+
+
+@pytest.mark.parametrize("pat", [b"quick brown fox ", b"e ", bytes(range(1, 256)) + b"x"],
+                         ids=["m16", "m2", "m256"])
+def test_gv_offsets_end_to_end(pat, cuda_device):
+    """The exp/ path on 4 MiB: screen, group ids, gather-verify and decode
+    equal the oracle when the occupied groups fit in cap_g; past cap_g
+    (the dense m=2) they equal the oracle on the listed groups."""
+    from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.exp import (
+        proto_kernels,
+    )
+
+    text = bytearray(gen_english(4 << 20, seed=29))
+    for off in (0, TILE - 3, (2 << 20) + 4095, len(text) - len(pat)):
+        text[off : off + len(pat)] = pat
+    text = bytes(text)
+    padded = torch.from_numpy(pad_to_multiple(_u8(text), TILE).copy()).to(cuda_device)
+    u = np.frombuffer(pat, np.uint8)
+    P = torch.from_numpy(swar.pattern_words(u)[0]).to(cuda_device)
+    probes = swar.static_probes_from_table(swar.probe_table(u, use_gs=True))
+    cap_g, n = (512 if pat == b"e " else 1024), len(text)
+    k11d = swar.gather_verify.launches
+    count, offs, overflow = proto_kernels.gv_offsets(
+        padded.view(torch.int32), n, P, len(pat), probes, cap_g, 1 << 16)
+    assert swar.gather_verify.launches == k11d + 1 and offs.device == padded.device
+    want = find_all(text, pat)
+    g8 = proto_kernels.group_ids(
+        proto_kernels.proto_screen(padded.view(torch.int32).view(-1, 1024), n, P,
+                                   len(pat), probes)[1], cap_g)
+    listed = {g for g in g8.tolist() if g < padded.numel() // 4096}
+    if len(listed) == cap_g:  # the groups were cut at cap_g
+        want = [p for p in want if p // 4096 in listed]
+    assert pat != b"e " or len(listed) == cap_g
+    assert count == len(want) and overflow == (len(want) > 1 << 16)
+    assert offs.tolist() == want[: 1 << 16]

@@ -26,18 +26,20 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_port_never_imports_jax():
     """Every module of the port, imported in a fresh interpreter (the test
-    process itself already holds jax, see conftest.py), leaves jax out of
-    sys.modules."""
+    process itself already holds jax, see conftest.py), leaves jax, the
+    JAX package and the top-level ``exp/`` scripts out of sys.modules."""
     code = textwrap.dedent(f"""
         import importlib, pkgutil, sys
         import {port.__name__} as p
         names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + ".")]
         for name in names:
             importlib.import_module(name)
-        assert len(names) >= 14, names
+        assert len(names) >= 26, names
+        assert p.__name__ + ".exp.proto_kernels" in names, names
         bad = sorted(k for k in sys.modules if k == "jax" or k.startswith("jax.")
                      or k.startswith("jaxlib")
-                     or k.startswith("parallel_implementation_of_string_matching_algorithms_opencl_tpu."))
+                     or k.startswith("parallel_implementation_of_string_matching_algorithms_opencl_tpu.")
+                     or k.split(".")[0] in ("exp", "screen_kernel_opt", "proto_kernels"))
         assert not bad, bad
         print("ok", len(names))
     """)

@@ -9,7 +9,10 @@ source, in parallel), then:
 (a) holds each kernel against its plain PyTorch version on the card, bit
     for bit, at the shapes the main paths give it (256 MiB corpora): K1
     ``screen_cand_bsums``, K2 ``naive_nib`` and K3 ``naive_bsums`` on every
-    corpus; K4 ``kmp_bsums`` (K = 1 at m=16, the m=64 screen on
+    corpus and on ragged regions (1, 31, 32, 33 and 97 blocks and one tile
+    past a whole number of grid spans; each a fresh tensor that ends its
+    allocation or starts off its 16-byte line; n_lim in the last block; K1
+    under three probe layouts); K4 ``kmp_bsums`` (K = 1 at m=16, the m=64 screen on
     pattern[:32], K = 2 at m=64, K = 8 at m=256), K5
     ``rk_candidate_bsums`` (m=16, m=509, and k=8 targets) and K6
     ``rk_candidate_pmask`` (k=8 m=16 with BASELINE config 2's patterns,
@@ -65,7 +68,8 @@ source, in parallel), then:
     against the oracle, and on the dense 64 MiB text, whose occupied groups
     outnumber cap_g, against the oracle on the listed groups;
 (e) times every kernel and its plain version with CUDA events (K9 beside
-    K4 / K10a at the same m, K10c beside K6), ``match``
+    K4 / K10a at the same m, K10c beside K6; K1-K3 also by their own device
+    time per call from torch.profiler, their time in the JSON line), ``match``
     per algorithm on a device-resident text (host clock, and device time
     and idle share from torch.profiler), sparse and 'nib' in alternating
     passes, and from host bytes, the KMP dense-DFA tail at m=509, K6,
@@ -234,6 +238,78 @@ def host_ms(fn, iters: int, passes: int = 3) -> list[float]:
     return out
 
 
+def kernel_device_ms(fn, runs: int, name: str, wrapper) -> tuple[float, int]:
+    """(device ms per launch, launches recorded) of the kernels whose name
+    holds ``name`` over ``runs`` calls of ``fn()`` under torch.profiler:
+    the kernel's own time, without the host's launch path.  ``wrapper``'s
+    launch count must rise by one per call.  The profiler can drop a few
+    of the card's activity records, so the time is the mean over the
+    launches it recorded, of which there must be at least one and at most
+    one per call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    before = wrapper.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    assert wrapper.launches - before == runs, (
+        f"{name}: {wrapper.launches - before} launches in {runs} calls")
+    mine = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+    assert 1 <= len(mine) <= runs, f"{name}: {len(mine)} kernels in {runs} calls"
+    return sum(e.time_range.elapsed_us() for e in mine) / 1e3 / len(mine), len(mine)
+
+
+RAGGED_PATTERNS = (b"e", b"quick brown fox ", b"ab\x00\x00",
+                   bytes(range(1, 256)) + bytes(range(1, 255)))  # m = 509
+
+
+def ragged_words(blocks: int, pat: bytes):
+    """tests/test_torch_cuda.py's ragged region: int32 words of ``blocks``
+    512-byte blocks of seeded English, whole copies of ``pat`` planted and
+    its first two bytes as the region's last two."""
+    import numpy as np
+
+    from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.utils.io import (
+        gen_english,
+    )
+
+    n = 512 * blocks
+    data = bytearray(gen_english(n, seed=blocks + len(pat)))
+    m = len(pat)
+    end = 0
+    for off in (0, n // 2 - 3, n - 512 - m // 2, n - 300, n - m - 7):
+        if off >= end and off + m <= n:
+            data[off : off + m] = pat
+            end = off + m
+    data[n - len(pat[:2]) :] = pat[:2]
+    return np.frombuffer(bytes(data), np.int32)
+
+
+def placed(words, where: str, dev):
+    """``words`` on the card as a fresh tensor: 'end', the last words of an
+    allocation of whole 2 MiB pages (at least 10 MiB, mapped on its own by
+    the caching allocator), nothing after them; 'lead', one word into a
+    buffer of -1 words, which also follow it."""
+    import torch
+
+    n = words.size
+    if where == "end":
+        torch.cuda.empty_cache()
+        total = max(-(-4 * n // (2 << 20)) * (2 << 20), 10 << 20) // 4
+        buf = torch.full((total,), -1, dtype=torch.int32, device=dev)
+        region = buf[total - n:]
+    else:
+        buf = torch.full((n + 1 + 128,), -1, dtype=torch.int32, device=dev)
+        region = buf[1 : 1 + n]
+    region.copy_(torch.from_numpy(words.copy()))
+    return region
+
+
 def device_profile(fn, runs: int) -> tuple[float, float]:
     """(device ms per run, device events per run) of ``fn()`` under
     torch.profiler: the summed durations of the events that ran on the
@@ -368,13 +444,14 @@ def main() -> int:
     errs = dict.fromkeys(names, 0)
     lines = []
 
-    def hold(kernel: str, what: str, got, want) -> None:
+    def hold(kernel: str, what: str, got, want, quiet: bool = False) -> None:
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         e = max(int((g - w).abs().max()) for g, w in zip(got, want))
         errs[kernel] = max(errs[kernel], e)
-        lines.append(f"{kernel} {what}: max_abs_err {e}")
+        if not quiet:
+            lines.append(f"{kernel} {what}: max_abs_err {e}")
         assert all(torch.equal(g, w) for g, w in zip(got, want)), (
             f"{kernel} disagrees on {what}")
 
@@ -412,6 +489,46 @@ def main() -> int:
                  swar.screened_bsums_plain(region, limit, P, M, lay))
             hold("screened_bsums", f"{what} {tag} vs K3", got, bs3)
         del k2
+
+    # K1-K3 walk 16 KiB tiles on a persistent grid: ragged regions of 1,
+    # 31, 32, 33 and 97 blocks and of one tile more than SMs x c tiles
+    # (c = 1..8 CTAs per SM: one of them is the grid's span plus one), each
+    # a fresh tensor that ends its allocation or starts one word into a
+    # buffer of -1 words, n_lim mid-way into the last block and at its last
+    # byte, K1 under the 'static', 'table_gs' and 'table_gs1' probes.
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ragged = [1, 31, 32, 33, 97] + [32 * (sms * c + 1) for c in range(1, 9)]
+    for pat in RAGGED_PATTERNS:
+        u = np.frombuffer(pat, np.uint8)
+        Pr, Mr = (torch.from_numpy(a).to(dev) for a in swar.pattern_words(u))
+        layouts = {"static": swar.probe_indices(swar.mask_words(len(pat))),
+                   "table_gs": swar.static_probes_from_table(swar.probe_table(u, use_gs=True)),
+                   "table_gs1": swar.static_probes_from_table(
+                       swar.probe_table(u, use_gs=True, single=True))}
+        held = matches = 0
+        for blocks in ragged:
+            host_words = ragged_words(blocks, pat)
+            for where in ("end", "lead"):
+                words = placed(host_words, where, dev)
+                n_r = 4 * words.numel()
+                for lim in (n_r - 512 + 137, n_r - 1):
+                    what = f"ragged m={len(pat)} {blocks} blocks {where} n_lim={lim}"
+                    for tag, lay in layouts.items():
+                        hold("screen_cand_bsums", f"{what} {tag}",
+                             swar.screen_cand_bsums(words, lim, Pr, Mr, lay),
+                             swar.screen_cand_bsums_plain(words, lim, Pr, Mr, lay), quiet=True)
+                    nib_p, bs_p = swar.naive_nib_plain(words, lim, Pr, Mr)
+                    hold("naive_nib", what, swar.naive_nib(words, lim, Pr, Mr),
+                         (nib_p, bs_p), quiet=True)
+                    hold("naive_bsums", what, swar.naive_bsums(words, lim, Pr, Mr), bs_p,
+                         quiet=True)
+                    held += 5
+                    matches += int(bs_p.sum())
+                del words
+        lines.append(f"ragged m={len(pat)}: K1 (3 layouts), K2, K3 on {len(ragged)} lengths "
+                     f"({ragged[0]}..{ragged[-1]} blocks) x 2 placements x 2 n_lim: "
+                     f"{held} holds, max_abs_err 0, {matches} matches in all")
+    torch.cuda.empty_cache()
 
     for name in ("english", "dna"):
         text, pat16 = corpora[name]
@@ -1146,17 +1263,28 @@ def main() -> int:
         cases[("gather_verify", f"m=16 cap_g={c}")] = (
             functools.partial(swar.gather_verify, region, g8, limit, P, M),
             functools.partial(swar.gather_verify_plain, region, g8, limit, P, M), 5)
+    # K1-K3 take about 0.1 ms, where back-to-back event times can measure
+    # the host's launch path: each also reports its own device time per
+    # call from the profiler, and that is its time in the JSON line.
+    own_kernel = {"screen_cand_bsums": "screen_cand_kernel",
+                  "naive_nib": "naive_kernel", "naive_bsums": "naive_kernel"}
     ms, plain_ms, bounds, shape = {}, {}, {}, {}
     for (k, what), (kern, plain, plain_iters) in cases.items():
         kt = cuda_ms(kern, 20)
         pt = cuda_ms(plain, plain_iters, warmup=1)
         b_ms, b_by = bound(*shapes[(k, what)])
+        own = ""
+        t = kt
+        if k in own_kernel:
+            t, seen = kernel_device_ms(kern, 20, own_kernel[k], getattr(swar, k))
+            own = (f", device {t:.4f} ms per call (profiler, {seen} of 20 launches "
+                   f"recorded, {b_ms / t:.3f} of the bound)")
         if k not in ms:  # the JSON line reports each kernel's first case
-            ms[k], plain_ms[k], bounds[k], shape[k] = kt, pt, (b_ms, b_by), what
+            ms[k], plain_ms[k], bounds[k], shape[k] = t, pt, (b_ms, b_by), what
         # Text bytes per second; K11d reads only its groups: bytes it moves.
-        rate = (f"{Nk / kt / 1e6:.1f} GB/s kernel" if k != "gather_verify" else
+        rate = (f"{Nk / t / 1e6:.1f} GB/s kernel" if k != "gather_verify" else
                 f"{shapes[(k, what)][0] / kt / 1e6:.1f} GB/s moved")
-        print(f"(e) {k} 256 MiB english {what}: kernel {kt:.4f} ms, plain "
+        print(f"(e) {k} 256 MiB english {what}: kernel {kt:.4f} ms (events){own}, plain "
               f"{pt:.4f} ms, bound {b_ms:.4f} ms by {b_by} ({b_ms / kt:.3f} of it), "
               f"{rate} {card}")
         torch.cuda.empty_cache()

@@ -7,14 +7,20 @@
 //     (word[w + k] & M[a][k]) == P[a][k]
 //
 // where P[a] is the pattern placed at byte offset a of a zeroed buffer and
-// M[a] its byte-occupancy mask (kernels/swar.py pattern_words).  All
-// kernels run one thread per text word and 128 threads per block, so one
-// CUDA block owns one 512-byte output block (the gather-verify kernel's
-// block walks the eight blocks of a 4 KiB group).  Words at or past n_words (the
-// end of the kernel region) read as 0; a thread reads word w + k straight
-// from global memory, and the neighbouring threads of a warp read
-// neighbouring words, so every load instruction is one coalesced 128-byte
-// line that later probes of the same block hit in L1.
+// M[a] its byte-occupancy mask (kernels/swar.py pattern_words).  Words at
+// or past n_words (the end of the kernel region) read as 0.
+//
+// Two designs share this file.  The main path's scans, K1 (the probe
+// screen) and the naive verify K2/K3, are persistent tiled kernels: a grid
+// of as many CTAs as the card holds at once walks 16 KiB tiles of the
+// region, each tile and its halo prefetched to registers while the one
+// before it is scanned, then stored to one of two shared-memory buffers,
+// and one warp scans each 512-byte output block out of shared memory
+// (scan_tiles).  The others (K7/K8, K11a, K11d) run one
+// thread per text word and 128 threads per CUDA block, so one CUDA block
+// owns one 512-byte output block (K11d's walks the eight blocks of a 4 KiB
+// group); a thread reads word w + k straight from global memory, and the
+// neighbouring threads of a warp read neighbouring words.
 //
 // Block sums come out in byte order: bs[b] covers bytes 512b..512b+511.
 // The JAX reference's tile-major reorder (swar.py _run) has no counterpart.
@@ -23,6 +29,7 @@
 
 namespace {
 
+using tpm::kBlockBytes;
 using tpm::kBlockWords;
 using tpm::load_word;
 
@@ -32,8 +39,290 @@ struct Probes {
   int k[4][2];  // probe word index per alignment (a pair may repeat one word)
 };
 
+// ---------------------------------------------------------------------------
+// Persistent tiled scans (K1, K2, K3)
+// ---------------------------------------------------------------------------
+
+constexpr int kTileBlocks = 32;                        // output blocks per tile
+constexpr int kTileWords = kTileBlocks * kBlockWords;  // 16 KiB of text
+constexpr int kScanWarps = 8;
+constexpr int kScanThreads = 32 * kScanWarps;
+constexpr int kMaxPatternWords = kBlockWords;  // nw <= 128, i.e. m <= 509
+// One tile buffer: up to 3 lead words (the region may start anywhere in its
+// 16-byte line), the tile, and a halo of up to kMaxPatternWords - 1 words,
+// in whole 16-byte chunks.
+constexpr int kBufWords = kTileWords + kMaxPatternWords + 4;
+constexpr size_t kTileSmem = 2 * kBufWords * sizeof(uint32_t);  // two buffers
+// 16-byte chunks of a tile buffer that each thread copies.
+constexpr int kChunks = (kBufWords / 4 + kScanThreads - 1) / kScanThreads;
+constexpr int kMaxDevices = 64;
+// Within the 48 KB a launch gets without cudaFuncSetAttribute, the
+// pattern's staged words included (naive_kernel).
+static_assert(kTileSmem + 8 * kMaxPatternWords * sizeof(uint32_t) <= 48 * 1024,
+              "tile buffers past 48 KB need cudaFuncAttributeMaxDynamicSharedMemorySize");
+
+// Tiles of a region of n_words (a multiple of 128); the last may be ragged.
+__host__ __device__ __forceinline__ long long tiles_of(long long n_words) {
+  return (n_words / kBlockWords + kTileBlocks - 1) / kTileBlocks;
+}
+
+// Walks the CTA's tiles t = blockIdx.x, blockIdx.x + gridDim.x, ... through
+// two buffers in shared memory s.  fn(base, t) scans tile t, in which
+// s[base + j] is region word t * kTileWords + j for j in [0, kTileWords +
+// halo), while the next tile's words are in flight to registers (r: each
+// thread's 16-byte chunks of the buffer, read with ld.global.nc): they go
+// to the other buffer after fn, and one barrier per tile orders both
+// buffers.  Copies start at the region's 16-byte line (the lead words
+// before its first word share that line, so they lie in its allocation);
+// words at or past n_words read as 0 and are never read from memory.
+// Every thread of the CTA calls fn once per tile; fn's warps never
+// synchronise with each other.
+template <class Fn>
+__device__ __forceinline__ void scan_tiles(uint32_t* s, const uint32_t* words,
+                                           long long n_words, int halo, Fn&& fn) {
+  const long long n_tiles = tiles_of(n_words);
+  const int lead = (int)((reinterpret_cast<uintptr_t>(words) >> 2) & 3);
+  const int n_load = (lead + kTileWords + halo + 3) & ~3;
+  uint4 r[kChunks];
+  auto fetch = [&](long long t) {
+    const long long first = t * kTileWords - lead;  // a 16-byte line
+#pragma unroll
+    for (int j = 0; j < kChunks; ++j) {
+      const int c = 4 * (threadIdx.x + j * kScanThreads);
+      const long long left = n_words - (first + c);
+      const uint32_t* src = words + (first + c);
+      if (c >= n_load) continue;
+      if (left >= 4)
+        r[j] = __ldg(reinterpret_cast<const uint4*>(src));
+      else  // the region's end: only when it starts off its 16-byte line
+        r[j] = make_uint4(left > 0 ? __ldg(src) : 0u, left > 1 ? __ldg(src + 1) : 0u,
+                          left > 2 ? __ldg(src + 2) : 0u, 0u);
+    }
+  };
+  auto stash = [&](uint32_t* buf) {
+#pragma unroll
+    for (int j = 0; j < kChunks; ++j) {
+      const int c = 4 * (threadIdx.x + j * kScanThreads);
+      if (c < n_load) *reinterpret_cast<uint4*>(buf + c) = r[j];
+    }
+  };
+  long long t = blockIdx.x;  // the grid never exceeds n_tiles
+  fetch(t);
+  stash(s);
+  __syncthreads();
+  for (int i = 0; t < n_tiles; t += gridDim.x, ++i) {
+    const bool more = t + gridDim.x < n_tiles;
+    if (more) fetch(t + gridDim.x);
+    fn((i & 1) * kBufWords + lead, t);
+    if (more) stash(s + ((i + 1) & 1) * kBufWords);
+    __syncthreads();
+  }
+}
+
+// Replaces kernels/swar.py::_screen_cand_kernel (Pallas, TPU).
+//
+// Boyer-Moore candidate screen: word w is a candidate when, for some
+// alignment a, both probe words of a compare equal under their masks.  The
+// count of candidate words with 4w <= n_lim (the clamp is per WORD, as in
+// the reference) goes to bs[block].  Candidates are a superset of the
+// matches; ops/reconstruct.extract_region verifies them exactly.
+//
+// Bound on the H100: one read of the region from device memory (about
+// 80 us for 256 MiB at 3.35 TB/s), with the eight masked compares per word
+// close behind on the 16 INT32 lanes per scheduler, so once it streams the
+// kernel is bound by its instruction rate.  scan_tiles streams: each CTA
+// has the next 16 KiB tile in flight while it scans one, several CTAs per
+// SM.
+// Lane L of the warp that owns a block takes its words L, L + 32, L + 64
+// and L + 96: the read of word w + k from shared memory is conflict-free
+// for any probe offset k, at a register-plus-immediate address.  The
+// eight (P, M) probe values sit in registers for the CTA's life; the block
+// sum is one __reduce_add_sync, and lane 0 writes it.  A probe offset
+// shared by two alignments is read once per alignment (the offsets are
+// runtime values): those reads go to the shared-memory pipe, beside the
+// compares.
+__global__ void __launch_bounds__(kScanThreads)
+screen_cand_kernel(const uint32_t* __restrict__ words, long long n_words,
+                   long long n_lim, const uint32_t* __restrict__ P,
+                   const uint32_t* __restrict__ M, int nw, Probes pr, int halo,
+                   int* __restrict__ bs) {
+  extern __shared__ uint32_t smem[];
+  uint32_t pv[4][2], mv[4][2];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      pv[a][s] = __ldg(P + a * nw + pr.k[a][s]);
+      mv[a][s] = __ldg(M + a * nw + pr.k[a][s]);
+    }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long n_blocks = n_words / kBlockWords;
+  const long long wlim = n_lim >> 2;  // 4w <= n_lim  <=>  w <= floor(n_lim / 4)
+  scan_tiles(smem, words, n_words, halo, [=](int base, long long t) {
+#pragma unroll
+    for (int i = 0; i < kTileBlocks / kScanWarps; ++i) {
+      const int lb = warp + i * kScanWarps;
+      const long long b = t * kTileBlocks + lb;
+      if (b >= n_blocks) break;  // the ragged last tile
+      // The block's words j <= last pass the clamp.
+      const long long rel = wlim - b * kBlockWords;
+      const int last = rel < 0 ? -1 : (rel > kBlockWords ? kBlockWords : (int)rel);
+      const int x = base + lb * kBlockWords + lane;
+      int count = 0;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int xq = x + 32 * q;
+        bool cand = false;
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          const uint32_t d = ((smem[xq + pr.k[a][0]] & mv[a][0]) ^ pv[a][0]) |
+                             ((smem[xq + pr.k[a][1]] & mv[a][1]) ^ pv[a][1]);
+          cand |= d == 0u;
+        }
+        count += cand && lane + 32 * q <= last;
+      }
+      count = __reduce_add_sync(0xffffffffu, count);
+      if (lane == 0) bs[b] = count;
+    }
+  });
+}
+
+// Exact verify of every start.  kEmitNib = true replaces
+// kernels/swar.py::_naive_kernel (naive_nib with emit_nib=True), the full
+// rescan that extract_region escalates to when candidate chunks outnumber
+// its gather width, and the naive matcher's emission='nib' scan.
+// kEmitNib = false replaces kernels/swar.py::_naive_sparse_kernel
+// (emit_nib=False), the naive matcher's sparse scan: the same verify
+// without the nibble store.
+//
+// Bit a of a word's nibble is set when the pattern matches at byte 4w + a,
+// kept only if 4w + a <= n_lim (validity per ALIGNMENT, as the reference's
+// _validity_nibble).  bs[block] is the block's exact match count.
+//
+// Bound on the H100: one read of the region, plus one write of the int32
+// nibble plane of the same size when kEmitNib (about 80 us or 160 us for
+// 256 MiB at 3.35 TB/s).  The tiles stream through scan_tiles as K1's do.
+// The pattern's 8 nw words are staged in shared memory once per CTA.  A
+// word's chains run only past a screen that costs K1's eight compares
+// whatever m is: on text that repeats the pattern's own words (the word
+// soup chip_smoke.py times is full of "quick") a screen on one word per
+// alignment sends most warps down the chains, divergent, and costs more
+// than it saves.  Lane L owns words L + 32q of its warp's block, so
+// each nibble store is one contiguous 128-byte line per warp; the chains,
+// the clamp and the popcounts run only in warps with a hit.
+template <bool kEmitNib>
+__global__ void __launch_bounds__(kScanThreads)
+naive_kernel(const uint32_t* __restrict__ words, long long n_words,
+             long long n_lim, const uint32_t* __restrict__ P,
+             const uint32_t* __restrict__ M, int nw, int* __restrict__ nib,
+             int* __restrict__ bs) {
+  extern __shared__ uint32_t smem[];
+  uint32_t* pm = smem + 2 * kBufWords;  // P[4][nw], then M[4][nw]
+  for (int t = threadIdx.x; t < 4 * nw; t += kScanThreads) {
+    pm[t] = P[t];
+    pm[4 * nw + t] = M[t];
+  }
+  __syncthreads();
+  // Alignment a's chain is screened on two of its words, its first and
+  // last whole ones (word 0 twice if none is whole), as K1's probes: a
+  // start that fails either fails its chain, and two words far apart
+  // rarely both match where the pattern does not.
+  int ks[4][2];
+  uint32_t ps[4][2], ms[4][2];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    int first = -1, last = 0;
+    for (int k = 0; k < nw; ++k)
+      if (pm[4 * nw + a * nw + k] == 0xFFFFFFFFu) {
+        first = first < 0 ? k : first;
+        last = k;
+      }
+    ks[a][0] = first < 0 ? 0 : first;
+    ks[a][1] = last;
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      ps[a][s] = pm[a * nw + ks[a][s]];
+      ms[a][s] = pm[4 * nw + a * nw + ks[a][s]];
+    }
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long n_blocks = n_words / kBlockWords;
+  scan_tiles(smem, words, n_words, nw - 1, [=](int base, long long t) {
+#pragma unroll
+    for (int i = 0; i < kTileBlocks / kScanWarps; ++i) {
+      const int lb = warp + i * kScanWarps;
+      const long long b = t * kTileBlocks + lb;
+      if (b >= n_blocks) break;  // the ragged last tile
+      const int x = base + lb * kBlockWords + lane;
+      // The screen, branch-free: does any alignment of the word pass it?
+      bool hit[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        hit[q] = false;
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          const uint32_t d = ((smem[x + 32 * q + ks[a][0]] & ms[a][0]) ^ ps[a][0]) |
+                             ((smem[x + 32 * q + ks[a][1]] & ms[a][1]) ^ ps[a][1]);
+          hit[q] |= d == 0u;
+        }
+      }
+      int bits[4] = {0, 0, 0, 0};
+      int sum = 0;
+      // The chains, each to its first mismatch, of the words with a hit;
+      // the warp takes this path only when one of its lanes has one.
+      if (__any_sync(0xffffffffu, hit[0] | hit[1] | hit[2] | hit[3])) {
+        // Starts at bytes 0..rel of the block pass the clamp.
+        const long long rel = n_lim - (long long)kBlockBytes * b;
+        const int relc = rel < 0 ? -1 : (int)(rel > kBlockBytes ? kBlockBytes : rel);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          if (!hit[q]) continue;
+#pragma unroll
+          for (int a = 0; a < 4; ++a) {
+            bool ok = true;
+            for (int k = 0; ok && k < nw; ++k)
+              ok = (smem[x + 32 * q + k] & pm[4 * nw + a * nw + k]) == pm[a * nw + k];
+            bits[q] |= (int)ok << a;
+          }
+          int keep = relc - 4 * (lane + 32 * q) + 1;
+          keep = keep < 0 ? 0 : (keep > 4 ? 4 : keep);
+          bits[q] &= (1 << keep) - 1;
+          sum += __popc(bits[q]);
+        }
+      }
+      if (kEmitNib)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) nib[b * kBlockWords + lane + 32 * q] = bits[q];
+      sum = __reduce_add_sync(0xffffffffu, sum);
+      if (lane == 0) bs[b] = sum;
+    }
+  });
+}
+
+// CTAs of a persistent scan: every SM filled to the kernel's occupancy
+// (computed once per device into cache[device]), at most one per tile.
+int persistent_grid(const void* kernel, size_t smem, long long n_tiles,
+                    int* cache, unsigned* grid) {
+  int dev = 0;
+  if (cudaError_t err = cudaGetDevice(&dev)) return (int)err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (cache[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    if (cudaError_t err =
+            cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))
+      return (int)err;
+    if (cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, kernel, kScanThreads, smem))
+      return (int)err;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    cache[dev] = sms * per_sm;
+  }
+  *grid = (unsigned)(n_tiles < cache[dev] ? n_tiles : cache[dev]);
+  return 0;
+}
+
 // Whether both probe words of alignment a compare equal under their masks
-// at word w (K1's probe compare).
+// at word w (K11a's probe compare, read from global memory).
 __device__ __forceinline__ bool probe_hit(const uint32_t* __restrict__ words,
                                           long long w, long long n_words,
                                           const uint32_t* __restrict__ P,
@@ -46,36 +335,6 @@ __device__ __forceinline__ bool probe_hit(const uint32_t* __restrict__ words,
   const bool h0 = (x0 & __ldg(M + a * nw + k0)) == __ldg(P + a * nw + k0);
   const bool h1 = (x1 & __ldg(M + a * nw + k1)) == __ldg(P + a * nw + k1);
   return h0 & h1;
-}
-
-// Replaces kernels/swar.py::_screen_cand_kernel (Pallas, TPU).
-//
-// Boyer-Moore candidate screen: word w is a candidate when, for some
-// alignment a, both probe words of a compare equal under their masks.  The
-// count of candidate words with 4w <= n_lim (the clamp is per WORD, as in
-// the reference) goes to bs[block].  Candidates are a superset of the
-// matches; ops/reconstruct.extract_region verifies them exactly.
-//
-// Bound on the H100: one read of the region from device memory (about
-// 80 us for 256 MiB at 3.35 TB/s).  Compute is at most 8 masked compares
-// per word.  The design keeps it a pure stream: probe words come from L1
-// after the first touch, the per-block count is one __syncthreads_count,
-// and the only write is one int per 512 bytes.  The probe indices are
-// kernel arguments: unlike the TPU's dynamic rotate, a runtime offset
-// costs nothing here.
-__global__ void __launch_bounds__(kBlockWords)
-screen_cand_kernel(const uint32_t* __restrict__ words, long long n_words,
-                   long long n_lim, const uint32_t* __restrict__ P,
-                   const uint32_t* __restrict__ M, int nw, Probes pr,
-                   int* __restrict__ bs) {
-  const long long w = (long long)blockIdx.x * kBlockWords + threadIdx.x;
-  int cand = 0;
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-    cand |= (int)probe_hit(words, w, n_words, P, M, nw, pr, a);
-  if (4 * w > n_lim) cand = 0;
-  const int count = __syncthreads_count(cand);
-  if (threadIdx.x == 0) bs[blockIdx.x] = count;
 }
 
 // P[4][nw] then M[4][nw] into shared memory (2 * 4 * nw words).
@@ -131,39 +390,6 @@ __device__ __forceinline__ int emit_nibble(int bits, long long w,
     *bs_at = s;
   }
   return s;
-}
-
-// Exact verify of every start.  kEmitNib = true replaces
-// kernels/swar.py::_naive_kernel (naive_nib with emit_nib=True), the full
-// rescan that extract_region escalates to when candidate chunks outnumber
-// its gather width, and the naive matcher's emission='nib' scan.
-// kEmitNib = false replaces kernels/swar.py::_naive_sparse_kernel
-// (emit_nib=False), the naive matcher's sparse scan: the same verify
-// without the nibble store.
-//
-// Bit a of a word's nibble is set when the pattern matches at byte 4w + a,
-// kept only if 4w + a <= n_lim (emit_nibble).  bs[block] is the block's
-// exact match count.
-//
-// Bound on the H100: one read of the region, plus one write of the int32
-// nibble plane of the same size when kEmitNib (about 80 us or 160 us for
-// 256 MiB at 3.35 TB/s).  The pattern words sit in shared memory; each
-// alignment's AND chain stops at its first mismatch, so on ordinary text a
-// thread reads one or two words per alignment whatever m is.
-template <bool kEmitNib>
-__global__ void __launch_bounds__(kBlockWords)
-naive_kernel(const uint32_t* __restrict__ words, long long n_words,
-             long long n_lim, const uint32_t* __restrict__ P,
-             const uint32_t* __restrict__ M, int nw, int* __restrict__ nib,
-             int* __restrict__ bs) {
-  extern __shared__ uint32_t pm[];
-  stage_pattern(P, M, nw, pm);
-  const long long w = (long long)blockIdx.x * kBlockWords + threadIdx.x;
-  int bits = 0;
-  for (int a = 0; a < 4; ++a)
-    bits |= (int)verify_alignment(words, w, n_words, pm, nw, a) << a;
-  emit_nibble<kEmitNib>(bits, w, n_lim, kEmitNib ? nib + w : nullptr,
-                        bs + blockIdx.x);
 }
 
 // Boyer-Moore screen, then exact verify (K7 and K8).  Replaces
@@ -227,8 +453,9 @@ screened_kernel(const uint32_t* __restrict__ words, long long n_words,
 // next words.
 //
 // Bound on the H100: one read of the region, as K1 (about 80 us for 256 MiB
-// at 3.35 TB/s).  The design is K1's stream; the nibble stays in a register
-// and only the block sum and one atomic per 512 bytes are written.
+// at 3.35 TB/s).  One thread per word reads its probe words from global
+// memory (K1's first design); the nibble stays in a register and only the
+// block sum and one atomic per 512 bytes are written.
 __global__ void __launch_bounds__(kBlockWords)
 screen_cand_nib_kernel(const uint32_t* __restrict__ words, long long n_words,
                        long long n_lim, const uint32_t* __restrict__ P,
@@ -294,26 +521,31 @@ int check_args(long long n_words, int nw) {
                                                 : 0;
 }
 
-template <bool kEmitNib>
-int launch_naive(const void* words, long long n_words, long long n_lim,
-                 const void* P, const void* M, int nw, void* nib, void* bs,
-                 void* stream) {
-  if (int err = check_args(n_words, nw)) return err;
-  const long long blocks = n_words / kBlockWords;
-  if (blocks == 0) return 0;
-  const size_t smem = 2 * 4 * (size_t)nw * sizeof(uint32_t);
-  naive_kernel<kEmitNib><<<(unsigned)blocks, kBlockWords, smem,
-                           (cudaStream_t)stream>>>(
-      (const uint32_t*)words, n_words, n_lim, (const uint32_t*)P,
-      (const uint32_t*)M, nw, (int*)nib, (int*)bs);
-  return (int)cudaGetLastError();
-}
-
 int check_probes(const Probes& pr, int nw) {
   for (int a = 0; a < 4; ++a)
     for (int s = 0; s < 2; ++s)
       if (pr.k[a][s] < 0 || pr.k[a][s] >= nw) return (int)cudaErrorInvalidValue;
   return 0;
+}
+
+template <bool kEmitNib>
+int launch_naive(const void* words, long long n_words, long long n_lim,
+                 const void* P, const void* M, int nw, void* nib, void* bs,
+                 void* stream) {
+  if (int err = check_args(n_words, nw)) return err;
+  if (nw > kMaxPatternWords) return (int)cudaErrorInvalidValue;
+  if (n_words == 0) return 0;
+  // The tile buffers, then the pattern's 8 nw words (room for the largest).
+  const size_t smem = kTileSmem + 8 * kMaxPatternWords * sizeof(uint32_t);
+  static int ctas[kMaxDevices];
+  unsigned grid = 0;
+  if (int err = persistent_grid((const void*)naive_kernel<kEmitNib>, smem,
+                                tiles_of(n_words), ctas, &grid))
+    return err;
+  naive_kernel<kEmitNib><<<grid, kScanThreads, smem, (cudaStream_t)stream>>>(
+      (const uint32_t*)words, n_words, n_lim, (const uint32_t*)P,
+      (const uint32_t*)M, nw, (int*)nib, (int*)bs);
+  return (int)cudaGetLastError();
 }
 
 template <bool kEmitNib>
@@ -336,18 +568,28 @@ int launch_screened(const void* words, long long n_words, long long n_lim,
 
 extern "C" {
 
-// bs must hold n_words / 128 ints; n_words must be a multiple of 128.
+// bs must hold n_words / 128 ints; n_words must be a multiple of 128, nw at
+// most 128 (K1-K3) and each probe word index in [0, nw).
 int tpm_screen_cand_bsums(const void* words, long long n_words, long long n_lim,
                           const void* P, const void* M, int nw, int k00,
                           int k01, int k10, int k11, int k20, int k21, int k30,
                           int k31, void* bs, void* stream) {
+  const Probes pr = {{{k00, k01}, {k10, k11}, {k20, k21}, {k30, k31}}};
   if (int err = check_args(n_words, nw)) return err;
-  const long long blocks = n_words / kBlockWords;
-  if (blocks == 0) return 0;
-  Probes pr = {{{k00, k01}, {k10, k11}, {k20, k21}, {k30, k31}}};
-  screen_cand_kernel<<<(unsigned)blocks, kBlockWords, 0, (cudaStream_t)stream>>>(
+  if (int err = check_probes(pr, nw)) return err;
+  if (nw > kMaxPatternWords) return (int)cudaErrorInvalidValue;
+  if (n_words == 0) return 0;
+  int halo = 0;  // the largest probe offset
+  for (int a = 0; a < 4; ++a)
+    for (int s = 0; s < 2; ++s) halo = pr.k[a][s] > halo ? pr.k[a][s] : halo;
+  static int ctas[kMaxDevices];
+  unsigned grid = 0;
+  if (int err = persistent_grid((const void*)screen_cand_kernel, kTileSmem,
+                                tiles_of(n_words), ctas, &grid))
+    return err;
+  screen_cand_kernel<<<grid, kScanThreads, kTileSmem, (cudaStream_t)stream>>>(
       (const uint32_t*)words, n_words, n_lim, (const uint32_t*)P,
-      (const uint32_t*)M, nw, pr, (int*)bs);
+      (const uint32_t*)M, nw, pr, halo, (int*)bs);
   return (int)cudaGetLastError();
 }
 

@@ -95,6 +95,93 @@ def test_kernels_bit_exact_against_plain(pat, n, cuda_device):
         words.cpu().numpy().tobytes()[: limit + len(pat)], pat))
 
 
+RAGGED_PATTERNS = [b"e", b"quick brown fox ", b"ab\x00\x00",
+                   bytes(range(1, 256)) + bytes(range(1, 255))]  # m = 509
+TILE_BLOCKS = 32  # 512-byte blocks per tile of the tiled K1-K3
+
+
+def _ragged_region(blocks: int, pat: bytes) -> np.ndarray:
+    """tests/test_torch_swar.py's ragged region: int32 words of ``blocks``
+    512-byte blocks of seeded English, whole copies of ``pat`` planted and
+    its first two bytes as the region's last two."""
+    n = 512 * blocks
+    data = bytearray(gen_english(n, seed=blocks + len(pat)))
+    m = len(pat)
+    end = 0
+    for off in (0, n // 2 - 3, n - 512 - m // 2, n - 300, n - m - 7):
+        if off >= end and off + m <= n:
+            data[off : off + m] = pat
+            end = off + m
+    data[n - len(pat[:2]) :] = pat[:2]
+    return np.frombuffer(bytes(data), np.int32)
+
+
+def _placed(words: np.ndarray, where: str, device) -> torch.Tensor:
+    """``words`` on the card as a fresh tensor.  'end': the last words of an
+    allocation of whole 2 MiB pages, at least 10 MiB so that the caching
+    allocator maps it on its own, with nothing after it.  'lead': one word
+    into a buffer of -1 words, which also follow it: a start off its
+    16-byte line, and garbage wherever a read past the end would land."""
+    n = words.size
+    if where == "end":
+        torch.cuda.empty_cache()
+        total = max(-(-4 * n // (2 << 20)) * (2 << 20), 10 << 20) // 4
+        buf = torch.full((total,), -1, dtype=torch.int32, device=device)
+        region = buf[total - n:]
+    else:
+        buf = torch.full((n + 1 + 128,), -1, dtype=torch.int32, device=device)
+        region = buf[1 : 1 + n]
+    region.copy_(torch.from_numpy(words.copy()))
+    return region
+
+
+@pytest.mark.parametrize("where", ["end", "lead"])
+@pytest.mark.parametrize("pat", RAGGED_PATTERNS, ids=lambda p: f"m{len(p)}")
+@pytest.mark.parametrize("length", [1, 31, 32, 33, 97, "span+1"])
+def test_tiled_scans_bit_exact_on_ragged_regions(length, pat, where, cuda_device):
+    """K1 (under the 'static', 'table_gs' and 'table_gs1' probe layouts),
+    K2 and K3 equal their plain versions bit for bit (tolerance 0) on
+    regions of 1, 31, 32, 33 and 97 blocks and of one tile more than a
+    whole number of grid spans ('span+1': SMs x c tiles + 1 for every
+    c = 1..8 CTAs per SM, so one of them is the kernel's span plus one
+    whatever its occupancy), with n_lim mid-way into the last block and at
+    its last byte; each launch counts once."""
+    u = np.frombuffer(pat, np.uint8)
+    P, M = (torch.from_numpy(a).to(cuda_device) for a in swar.pattern_words(u))
+    layouts = {
+        "static": swar.probe_indices(swar.mask_words(len(pat))),
+        "table_gs": swar.static_probes_from_table(swar.probe_table(u, use_gs=True)),
+        "table_gs1": swar.static_probes_from_table(
+            swar.probe_table(u, use_gs=True, single=True)),
+    }
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    lengths = ([TILE_BLOCKS * (sms * c + 1) for c in range(1, 9)]
+               if length == "span+1" else [length])
+    for blocks in lengths:
+        words = _placed(_ragged_region(blocks, pat), where, cuda_device)
+        n = 4 * words.numel()
+        for n_lim in (n - 512 + 137, n - 1):
+            what = f"{blocks} blocks, n_lim {n_lim}"
+            for name, probes in layouts.items():
+                k1 = swar.screen_cand_bsums.launches
+                bs1 = swar.screen_cand_bsums(words, n_lim, P, M, probes)
+                torch.cuda.synchronize()
+                assert swar.screen_cand_bsums.launches == k1 + 1
+                assert torch.equal(
+                    bs1, swar.screen_cand_bsums_plain(words, n_lim, P, M, probes)), (
+                    f"K1 {name}, {what}")
+            k2, k3 = swar.naive_nib.launches, swar.naive_bsums.launches
+            nib, bs2 = swar.naive_nib(words, n_lim, P, M)
+            bs3 = swar.naive_bsums(words, n_lim, P, M)
+            torch.cuda.synchronize()
+            assert (swar.naive_nib.launches, swar.naive_bsums.launches) == (k2 + 1, k3 + 1)
+            nib_p, bs_p = swar.naive_nib_plain(words, n_lim, P, M)
+            assert torch.equal(nib, nib_p) and torch.equal(bs2, bs_p), f"K2, {what}"
+            assert torch.equal(bs3, bs_p), f"K3, {what}"
+            assert int(bs_p.sum()) > 0
+        del words
+
+
 def test_refused_launch_raises(cuda_device):
     """A launch the C entry refuses (word count not a multiple of 128)
     surfaces as an exception."""

@@ -15,6 +15,7 @@ import torch
 
 import jax.numpy as jnp
 
+from conformance.oracle import find_all
 from parallel_implementation_of_string_matching_algorithms_opencl_tpu.kernels import (
     swar as jswar,
 )
@@ -105,6 +106,68 @@ def test_naive_nib_plain_matches_pallas(pat, tail):
     assert nib.dtype == bs.dtype == torch.int32
     assert np.array_equal(nib.numpy(), np.asarray(nib_ref).reshape(-1))
     assert np.array_equal(bs.numpy(), np.asarray(bs_ref))
+
+
+RAGGED_BLOCKS = [1, 31, 32, 33, 97]  # the CUDA K1-K3 walk tiles of 32 blocks
+RAGGED_PATTERNS = [b"e", b"quick brown fox ", b"ab\x00\x00",
+                   bytes(range(1, 256)) + bytes(range(1, 255))]  # m = 509
+
+
+def _ragged_region(blocks: int, pat: bytes) -> torch.Tensor:
+    """int32 words of ``blocks`` 512-byte blocks of seeded English with
+    ``pat`` planted at the start, mid-region, across the last block's
+    start and near the end (each copy whole, none overlapping), and its
+    first two bytes as the region's last two: a pattern ending in NUL bytes matches there
+    against the zeros that words past the end read as."""
+    n = 512 * blocks
+    data = bytearray(gen_english(n, seed=blocks + len(pat)))
+    m = len(pat)
+    end = 0
+    for off in (0, n // 2 - 3, n - 512 - m // 2, n - 300, n - m - 7):
+        if off >= end and off + m <= n:
+            data[off : off + m] = pat
+            end = off + m
+    data[n - len(pat[:2]) :] = pat[:2]
+    return torch.from_numpy(np.frombuffer(bytes(data), np.int32).copy())
+
+
+def _probe_layouts(pat: bytes) -> dict:
+    """K1's probe layouts: positional ('static'), bad-character and
+    good-suffix scored pairs ('table_gs'), and the best word alone
+    ('table_gs1', one index repeated)."""
+    u = np.frombuffer(pat, np.uint8)
+    return {"static": swar.probe_indices(swar.mask_words(len(pat))),
+            "table_gs": swar.static_probes_from_table(swar.probe_table(u, use_gs=True)),
+            "table_gs1": swar.static_probes_from_table(
+                swar.probe_table(u, use_gs=True, single=True))}
+
+
+@pytest.mark.parametrize("pat", RAGGED_PATTERNS, ids=lambda p: f"m{len(p)}")
+@pytest.mark.parametrize("blocks", RAGGED_BLOCKS)
+def test_ragged_regions_plain_verify_equals_oracle(blocks, pat):
+    """At the tiled kernels' ragged lengths, with n_lim inside the last
+    block (mid-block and its last byte): the plain K2's matches are the
+    oracle's starts <= n_lim over the region followed by zeros, its block
+    sums count them and the plain K3's equal its; the plain K1's block
+    sums cover every block holding a match under each probe layout.
+    tests/test_torch_cuda.py holds the kernels to these plain versions."""
+    words = _ragged_region(blocks, pat)
+    P, M = (torch.from_numpy(a) for a in
+            swar.pattern_words(np.frombuffer(pat, np.uint8)))
+    n = 4 * words.numel()
+    padded = words.numpy().tobytes() + bytes(len(pat))
+    for n_lim in (n - 512 + 137, n - 1):
+        want = [s for s in find_all(padded, pat) if s <= n_lim]
+        nib, bs = swar.naive_nib(words, n_lim, P, M)
+        wa = torch.nonzero((nib[:, None] >> torch.arange(4)) & 1)  # (word, alignment)
+        assert (4 * wa[:, 0] + wa[:, 1]).tolist() == want
+        assert torch.equal(bs, torch.bincount(torch.tensor(want, dtype=torch.int64) // 512,
+                                              minlength=blocks).to(torch.int32))
+        assert torch.equal(swar.naive_bsums(words, n_lim, P, M), bs)
+        assert pat != b"ab\x00\x00" or n_lim < n - 2 or n - 2 in want
+        for probes in _probe_layouts(pat).values():
+            cand = swar.screen_cand_bsums(words, n_lim, P, M, probes)
+            assert bool((cand[bs > 0] > 0).all()) and bool((cand >= 0).all())
 
 
 def test_wrappers_reject_bad_inputs():

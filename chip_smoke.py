@@ -12,8 +12,11 @@ source, in parallel), then:
     corpus and on ragged regions (1, 31, 32, 33 and 97 blocks and one tile
     past a whole number of grid spans; each a fresh tensor that ends its
     allocation or starts off its 16-byte line; n_lim in the last block; K1
-    under three probe layouts); K4 ``kmp_bsums`` (K = 1 at m=16, the m=64 screen on
-    pattern[:32], K = 2 at m=64, K = 8 at m=256), K5
+    under three probe layouts); K5 ``rk_candidate_bsums`` and K10b
+    ``rk_candidate_nib`` on the same ragged lengths (m=16 and m=509 with
+    one target, m=16 with k=8; regions that end their allocation or start
+    16 bytes into a buffer); K4 ``kmp_bsums`` (K = 1 at m=16, the m=64
+    screen on pattern[:32], K = 2 at m=64, K = 8 at m=256), K5
     ``rk_candidate_bsums`` (m=16, m=509, and k=8 targets) and K6
     ``rk_candidate_pmask`` (k=8 m=16 with BASELINE config 2's patterns,
     k=31 m=12, k=2 m=509, k=1 m=2) on English and DNA;
@@ -37,7 +40,8 @@ source, in parallel), then:
     'table_dyn' probes) against K2/K3, K10a ``kmp_nib`` (m = the corpus
     pattern, 64 and 256: K = 1, 2, 8) against K2 and, for m <= 32, K4, and
     K10b ``rk_candidate_nib`` (k=1 at the corpus pattern and m=509, k=8)
-    against K5, each true start among its candidates;
+    and K5 at the same cases against their plain versions, K10b's block
+    sums against K5's, each true start among its candidates;
     K9 (``kmp_bsums`` / ``kmp_nib`` with the composed-4 step at m = 5, 16,
     32, 33, 64 and 256, and with the compare-B lookup, per byte and
     composed, at m = 5, 16 and 32) against their plain versions and the
@@ -68,12 +72,14 @@ source, in parallel), then:
     against the oracle, and on the dense 64 MiB text, whose occupied groups
     outnumber cap_g, against the oracle on the listed groups;
 (e) times every kernel and its plain version with CUDA events (K9 beside
-    K4 / K10a at the same m, K10c beside K6; K1-K3 also by their own device
-    time per call from torch.profiler, their time in the JSON line), ``match``
+    K4 / K10a at the same m, K10c beside K6; K1-K3, K5 and K10b also by
+    their own device time per call from torch.profiler, their time in the
+    JSON line), ``match``
     per algorithm on a device-resident text (host clock, and device time
     and idle share from torch.profiler), sparse and 'nib' in alternating
     passes, and from host bytes, the KMP dense-DFA tail at m=509, K6,
-    K10b and K10c at 256 MiB and 1 GB, config 2's
+    K10b and K10c at 256 MiB and 1 GB (K10b there also by device time and
+    held against its plain version), config 2's
     ``RabinKarpMultiMatcher.run`` on the device-resident 1 GB text (sparse
     'pselect', 'groups' and 'nib' in alternating passes) and from host
     bytes, the 'cursor' route on the device-resident 256 MiB text, K11a
@@ -293,8 +299,8 @@ def ragged_words(blocks: int, pat: bytes):
 def placed(words, where: str, dev):
     """``words`` on the card as a fresh tensor: 'end', the last words of an
     allocation of whole 2 MiB pages (at least 10 MiB, mapped on its own by
-    the caching allocator), nothing after them; 'lead', one word into a
-    buffer of -1 words, which also follow it."""
+    the caching allocator), nothing after them; 'lead' ('lead16'), one word
+    (16 bytes) into a buffer of -1 words, which also follow it."""
     import torch
 
     n = words.size
@@ -304,8 +310,9 @@ def placed(words, where: str, dev):
         buf = torch.full((total,), -1, dtype=torch.int32, device=dev)
         region = buf[total - n:]
     else:
-        buf = torch.full((n + 1 + 128,), -1, dtype=torch.int32, device=dev)
-        region = buf[1 : 1 + n]
+        lead = 4 if where == "lead16" else 1
+        buf = torch.full((n + lead + 128,), -1, dtype=torch.int32, device=dev)
+        region = buf[lead : lead + n]
     region.copy_(torch.from_numpy(words.copy()))
     return region
 
@@ -528,6 +535,40 @@ def main() -> int:
         lines.append(f"ragged m={len(pat)}: K1 (3 layouts), K2, K3 on {len(ragged)} lengths "
                      f"({ragged[0]}..{ragged[-1]} blocks) x 2 placements x 2 n_lim: "
                      f"{held} holds, max_abs_err 0, {matches} matches in all")
+    # K5 and K10b (a warp per block over a persistent grid) at the same
+    # lengths and n_lim: m=16 and m=509 with one target, m=16 with k=8 (the
+    # pattern and seven slices of the region); each a fresh region that
+    # ends its allocation or starts 16 bytes into a buffer of -1 words (the
+    # RK wrappers refuse a start off its 16-byte line).
+    base = int(tables.RK_BASE)
+    for pat, k in ((b"quick brown fox ", 1), (RAGGED_PATTERNS[3], 1),
+                   (b"quick brown fox ", 8)):
+        m = len(pat)
+        c = tables.rk_constants(m, base)
+        held = cands = 0
+        for blocks in ragged:
+            host_words = ragged_words(blocks, pat)
+            raw = host_words.tobytes()
+            pats = [pat] + [raw[(97 * i) % (len(raw) - m):][:m] for i in range(1, k)]
+            tgt = torch.tensor([int(tables.rk_hash(np.frombuffer(q, np.uint8), c))
+                                for q in pats], device=dev)
+            for where in ("end", "lead16"):
+                words = placed(host_words, where, dev)
+                n_r = 4 * words.numel()
+                for lim in (n_r - 512 + 137, n_r - 1):
+                    what = f"ragged m={m} k={k} {blocks} blocks {where} n_lim={lim}"
+                    nib_p, bs_p = rk_roll.rk_candidate_nib_plain(words, lim, tgt, m, base)
+                    hold("rk_candidate_bsums", what,
+                         rk_roll.rk_candidate_bsums(words, lim, tgt, m, base), bs_p, quiet=True)
+                    hold("rk_candidate_nib", what,
+                         rk_roll.rk_candidate_nib(words, lim, tgt, m, base), (nib_p, bs_p),
+                         quiet=True)
+                    held += 2
+                    cands += int(bs_p.sum())
+                del words
+        lines.append(f"ragged RK m={m} k={k}: K5, K10b on {len(ragged)} lengths x 2 "
+                     f"placements (end, lead16) x 2 n_lim: {held} holds, max_abs_err 0, "
+                     f"{cands} candidates in all")
     torch.cuda.empty_cache()
 
     for name in ("english", "dna"):
@@ -614,10 +655,12 @@ def main() -> int:
                                 for q in pats], device=dev)
             what = f"{name} {p_what}"
             nib, bs = got = rk_roll.rk_candidate_nib(region, lim, tgt, m, base)
-            hold("rk_candidate_nib", what, got,
-                 rk_roll.rk_candidate_nib_plain(region, lim, tgt, m, base))
-            hold("rk_candidate_nib", f"{what} bs vs K5", bs,
-                 rk_roll.rk_candidate_bsums(region, lim, tgt, m, base))
+            plain = rk_roll.rk_candidate_nib_plain(region, lim, tgt, m, base)
+            hold("rk_candidate_nib", what, got, plain)
+            bs5 = rk_roll.rk_candidate_bsums(region, lim, tgt, m, base)
+            hold("rk_candidate_bsums", what, bs5, plain[1])
+            hold("rk_candidate_nib", f"{what} bs vs K5", bs, bs5)
+            del plain
             for q in pats:
                 Pq, Mq = (torch.from_numpy(a).to(dev)
                           for a in swar.pattern_words(np.frombuffer(q, np.uint8)))
@@ -1263,11 +1306,14 @@ def main() -> int:
         cases[("gather_verify", f"m=16 cap_g={c}")] = (
             functools.partial(swar.gather_verify, region, g8, limit, P, M),
             functools.partial(swar.gather_verify_plain, region, g8, limit, P, M), 5)
-    # K1-K3 take about 0.1 ms, where back-to-back event times can measure
-    # the host's launch path: each also reports its own device time per
-    # call from the profiler, and that is its time in the JSON line.
-    own_kernel = {"screen_cand_bsums": "screen_cand_kernel",
-                  "naive_nib": "naive_kernel", "naive_bsums": "naive_kernel"}
+    # K1-K3, K5 and K10b take 0.1-0.3 ms, where back-to-back event times
+    # can measure the host's launch path: each also reports its own device
+    # time per call from the profiler, and that is its time in the JSON line.
+    own_kernel = {"screen_cand_bsums": ("screen_cand_kernel", swar.screen_cand_bsums),
+                  "naive_nib": ("naive_kernel", swar.naive_nib),
+                  "naive_bsums": ("naive_kernel", swar.naive_bsums),
+                  "rk_candidate_bsums": ("rk_warp_kernel", rk_roll.rk_candidate_bsums),
+                  "rk_candidate_nib": ("rk_warp_kernel", rk_roll.rk_candidate_nib)}
     ms, plain_ms, bounds, shape = {}, {}, {}, {}
     for (k, what), (kern, plain, plain_iters) in cases.items():
         kt = cuda_ms(kern, 20)
@@ -1276,7 +1322,7 @@ def main() -> int:
         own = ""
         t = kt
         if k in own_kernel:
-            t, seen = kernel_device_ms(kern, 20, own_kernel[k], getattr(swar, k))
+            t, seen = kernel_device_ms(kern, 20, *own_kernel[k])
             own = (f", device {t:.4f} ms per call (profiler, {seen} of 20 launches "
                    f"recorded, {b_ms / t:.3f} of the bound)")
         if k not in ms:  # the JSON line reports each kernel's first case
@@ -1358,13 +1404,20 @@ def main() -> int:
           f"{reconstruct.MULTI_BLOCK_TIER})")
     del bm
     torch.cuda.empty_cache()
-    kt = cuda_ms(lambda: rk_roll.rk_candidate_nib(big_region, nb - 16, tgt, 16, base), 10)
-    pt = cuda_ms(lambda: rk_roll.rk_candidate_nib_plain(big_region, nb - 16, tgt, 16, base),
-                 1, warmup=1)
+    k10b = functools.partial(rk_roll.rk_candidate_nib, big_region, nb - 16, tgt, 16, base)
+    k10b_plain = functools.partial(rk_roll.rk_candidate_nib_plain, big_region, nb - 16, tgt,
+                                   16, base)
+    kt = cuda_ms(k10b, 10)
+    dt, seen = kernel_device_ms(k10b, 10, "rk_warp_kernel", rk_roll.rk_candidate_nib)
+    pt = cuda_ms(k10b_plain, 1, warmup=1)
+    hold("rk_candidate_nib", "1 GB english k=8 m=16 (config 2)", k10b(), k10b_plain(),
+         quiet=True)
     b_ms, b_by = bound(2 * big_dev.numel() + big_dev.numel() / 128, big_dev.numel() * 10)
-    print(f"(e) rk_candidate_nib 1 GB english k=8 m=16 (config 2 under nib): kernel "
-          f"{kt:.4f} ms, plain {pt:.4f} ms, bound {b_ms:.4f} ms by {b_by}, "
-          f"{big_region.numel() * 4 / kt / 1e6:.1f} GB/s kernel {card}")
+    print(f"(e) rk_candidate_nib 1 GB english k=8 m=16 (config 2 under nib): max_abs_err 0 "
+          f"against its plain version; kernel {kt:.4f} ms (events), device {dt:.4f} ms per "
+          f"call (profiler, {seen} of 10 launches recorded, {b_ms / dt:.3f} of the bound), "
+          f"plain {pt:.4f} ms, bound {b_ms:.4f} ms by {b_by}, "
+          f"{big_region.numel() * 4 / dt / 1e6:.1f} GB/s kernel {card}")
     torch.cuda.empty_cache()
     mms = {"sparse": mm,
            "sparse groups": RabinKarpMultiMatcher(c2_pats, groups_cfg, device=dev),

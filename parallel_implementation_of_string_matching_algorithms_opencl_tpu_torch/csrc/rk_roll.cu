@@ -1,62 +1,101 @@
-// Rolling-hash Rabin-Karp screen for Hopper (sm_90a).
+// Rolling-hash Rabin-Karp screens for Hopper (sm_90a).
 //
 // Replaces kernels/rk_roll.py::_kernel (Pallas, TPU) with emit='bsums' (K5),
-// with emit='pmask' plus kernels/shift_and.py::_end_to_start_pmask (K6),
 // with emit='nib' plus its host wrapper's end-to-start shift
-// (rk_candidate_nib, shift_and.end_nibble3_to_start_nib) (K10b), and with
+// (rk_candidate_nib, shift_and.end_nibble3_to_start_nib) (K10b), with
+// emit='pmask' plus kernels/shift_and.py::_end_to_start_pmask (K6), and with
 // emit='bmask' plus kernels/shift_and.py::_end_to_start_bmask (K10c).
 //
-// The window hash of m bytes x[s..s+m-1] is H = sum_j x[s+j] * B^(m-1-j)
-// mod 2^32 (ops/tables.rk_hash).  It rolls one byte at a time,
+// The window hash of m bytes x[s..s+m-1] is H(s) = sum_j x[s+j] * B^(m-1-j)
+// mod 2^32 (ops/tables.rk_hash).  B is odd and uint32 wraparound is the
+// mod, so native arithmetic gives the reference's values bit for bit.  A
+// start s is a candidate when H(s) equals any of the k targets and
+// s <= n_lim.  Hash hits are candidates, not matches:
+// ops/reconstruct.extract_region verifies and recounts them.  Bytes past the
+// end of the region read as 0, as in the plain versions.
 //
-//     H <- H * B + in - out * B^m          (uint32 wraparound is the mod)
+// Two designs share this file.
+//
+// K5 and K10b: a warp per 512-byte block on prefix hashes (rk_warp_kernel).
+// With the Horner prefix P(i) = sum_{j<i} x[j] * B^(i-1-j), started from 0
+// anywhere at or before s,
+//
+//     H(s) = P(s + m) - B^m * P(s)                              (uint32)
+//
+// since P(s + m) = B^m * P(s) + H(s): the bytes before s cancel.  A
+// persistent grid (tpm::persistent_grid) of 256-thread CTAs gives each warp
+// one contiguous span of blocks, walked in order with P carried from block
+// to block.  Lane l loads bytes [16l, 16l + 16) of a block, so one warp
+// load reads 512 contiguous bytes; the next block's bytes are in flight to
+// registers while one is scanned.  The lane runs Horner over its 16 bytes
+// (a byte permute and a multiply-add each), and a five-step
+// __shfl_up_sync scan combines the lanes affinely (P_hi <- P_lo * B^(16d)
+// + P_hi), the carry entering as lane 0's term.  The block's 512 prefixes
+// go to a two-block ring in shared memory: 64 rows of 16 (row 32 * (b & 1)
+// + l holds lane l's), each padded to 20 words, written and read as 16-byte
+// chunks, so that eight lanes' chunks fill the 32 banks.  A start of block
+// b needs P up to 512b + 511 + 509 < 512(b + 2), so the warp computes block
+// b + 1's prefixes before it hashes block b's starts (the span's last block
+// reads one block past the span).  Lane l takes the starts 16l..16l+15 of
+// its own bytes: P(s) is its own row, P(s + m) columns (m + t) mod 16 of
+// the row m / 16 further on and of the one after.  Where they split is
+// m & 15, a template argument (the launch picks one of 16 instances), so
+// every read is a chunk at a fixed offset.  Each H is compared with the
+// targets four at a time from registers, setting its hit bit, and with the
+// k mod 4 others into one predicate per lane; only in the rare warp where
+// that holds do the lanes build those targets' bits.  Lane
+// l's bits are the nibble words 4l..4l+3 (bit s & 3 of word s >> 2): K10b
+// stores them as one 16-byte write per lane, 512 contiguous bytes per
+// warp.  bs[b] is the warp's sum of the lanes' popcounts, in both.
+//
+// Bound on the H100: K5 reads the region once (80 us for 256 MiB at
+// 3.35 TB/s); K10b also writes a nibble plane of the same size (160 us).
+// The bound's operation count (chip_smoke.py) is 2 + k per byte, 0.16 ms
+// at k = 8.  The warp runs about six INT32 instructions per byte besides
+// the compares (the Horner pair, the lane offset, H, and a quarter each of
+// the chunk writes and reads) and one to one and a half per target: K5 at
+// k = 1 runs at about half its bytes bound, held by the instruction rate
+// and by the latency of each block's Horner chain and shuffle scan.  More
+// bytes in flight (two or four blocks ahead in registers, or a cp.async
+// ring of 4-8 blocks) did not make it faster.
+//
+// K6 and K10c: one thread per 512-byte block (rk_scan_kernel) rolls H one
+// byte at a time,
+//
+//     H <- H * B + in - out * B^m
 //
 // where `in` is the byte entering the window and `out` the byte m places
-// before it, leaving.  B is odd, so native uint32 arithmetic gives the
-// reference's values bit for bit.
+// before it, leaving.  The thread starts from H = 0 at the block's first
+// byte with no departing byte for its first m steps (bytes before the block
+// read as 0), so after step i >= m-1 H is the hash of the window starting
+// at block-local j = i - (m-1).  It runs 512 + m - 1 steps.
 //
-// One thread owns the starts of one 512-byte block.  It starts from H = 0
-// at the block's first byte with no departing byte for its first m steps
-// (bytes before the block read as 0), so after step i >= m-1 H is the hash
-// of the window starting at block-local j = i - (m-1).  It runs
-// 512 + m - 1 steps and counts the starts j in the block whose hash equals
-// any of the k targets and whose position is <= n_lim.  Hash hits are
-// candidates, not matches: ops/reconstruct.extract_region verifies and
-// recounts them.  The count goes straight to bs[block].
+// K6 (Emit::kPmask) ORs bit p into the block's mask when a start's hash
+// equals target p (k <= 31, so the sign bit is never used).  Bit p of
+// bs[block] is then exactly "some start s <= n_lim in this block hashes to
+// pattern p", the tightest per-pattern superset of the block's true starts.
+// The reference's mask is wider (its end-word fold reaches a few bytes into
+// the neighbouring blocks, and each TPU sub-chunk rolls cold over zero
+// front padding); every bit set here is set there too.
 //
-// K6 is the same kernel with Emit::kPmask: instead of counting, it ORs bit p
-// into the block's mask when a start's hash equals target p (k <= 31, so the
-// sign bit is never used).  Bit p of bs[block] is then exactly "some start
-// s <= n_lim in this block hashes to pattern p", the tightest per-pattern
-// superset of the block's true starts.  The reference's mask is wider (its
-// end-word fold reaches a few bytes into the neighbouring blocks, and each
-// TPU sub-chunk rolls cold over zero front padding); every bit set here is
-// set there too.
+// K10c (Emit::kBmask) ORs bit j >> 5 into the block's word for each start j
+// that K5 counts, so bit g (0..15) of bs[block] is set exactly when some
+// start s <= n_lim in the block's bytes [32g, 32g + 32) hashes to any
+// target: the 32-byte-group occupancy that multi_gather='groups' verifies.
+// Any k >= 1.  The reference folds its END nibbles to starts byte-exactly
+// before the any-per-group, so its mask is the same function; it is nonzero
+// exactly where K5's count is.
 //
-// K10b is the same kernel with Emit::kNib: it counts as K5 does (bs equals
-// K5's for the same targets) and also writes the candidate nibble plane,
-// bit j & 3 of word j >> 2 for each counted start j of the block.  The
-// reference emits END positions and shifts them to starts outside the
-// kernel; the thread here knows j and emits starts directly.  The starts
-// arrive in order, 16 to a 16-bit accumulator, stored as one 16-byte write
-// of four nibble words when the 16th is known.
-//
-// K10c is the same kernel with Emit::kBmask: it ORs bit j >> 5 into the
-// block's word for each start j that K5 counts, so bit g (0..15) of bs[block]
-// is set exactly when some start s <= n_lim in the block's bytes
-// [32g, 32g + 32) hashes to any target: the 32-byte-group occupancy that
-// multi_gather='groups' verifies.  Any k >= 1.  The reference folds its END
-// nibbles to starts byte-exactly before the any-per-group, so its mask is
-// the same function; it is nonzero exactly where K5's count is.
-//
-// Bound on the H100: latency and issue, not HBM.  Each step is a serial
+// Bound of K6 and K10c on the H100: latency and instruction rate, not HBM
+// (K6 at k = 8 0.2885 ms by operations, K10c 0.1603 ms, 256 MiB).  Each
+// step is a serial
 // multiply-add chain on H plus k compares; the entering bytes come 16 per
-// load, the departing bytes (the same stream m bytes behind, L1/L2 hits)
-// as five 4-byte loads per 16 steps aligned with funnel shifts.  Loads of
-// neighbouring threads are 512 bytes apart, so none is coalesced.  Making
-// it fast (the reference's word-level Horner split, a warp per block) is
-// later work.  K10b adds one write of the nibble plane, the region's size
-// (80 us more at 256 MiB), in 16-byte stores 512 bytes apart.
+// load, the departing bytes (the same stream m bytes behind, L1/L2 hits) as
+// five 4-byte loads per 16 steps aligned with funnel shifts.  Loads of
+// neighbouring threads are 512 bytes apart, so none is coalesced.  Moving
+// them onto the warp design above is later work.
+
+#include <utility>
 
 #include "scan.cuh"
 
@@ -66,19 +105,239 @@ using tpm::byte_of;
 using tpm::kBlockBytes;
 using tpm::load16;
 
-constexpr int kThreads = 128;
 constexpr int kMaxPattern = 509;
+constexpr unsigned kFull = 0xffffffffu;
 
-// What a block's scan emits: K5's count, K6's pattern mask, K10b's count
-// plus the candidate nibble plane, or K10c's group occupancy mask.
-enum class Emit { kCount, kPmask, kNib, kBmask };
+// ---------------------------------------------------------------------------
+// K5 and K10b: a warp per block on prefix hashes
+// ---------------------------------------------------------------------------
+
+constexpr int kWarpThreads = 256;
+constexpr int kWarps = kWarpThreads / 32;
+// A warp's ring: two blocks of prefixes in 64 rows of 16, one row per lane
+// and block, each row padded to 20 words.
+constexpr int kRowWords = 20;
+constexpr int kRingWords = 64 * kRowWords;
+constexpr size_t kRingSmem = (size_t)kWarps * kRingWords * sizeof(uint32_t);
+
+// Word i (0..3, a compile-time constant after unrolling) of a 16-byte group.
+__device__ __forceinline__ uint32_t word_of(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// Byte b (0..15, a compile-time constant after unrolling) of a 16-byte
+// group, in one byte permute.
+__device__ __forceinline__ uint32_t byte_at(const uint4& v, int b) {
+  return __byte_perm(word_of(v, b >> 2), 0u, 0x4440u | (b & 3));
+}
+
+// kO = m & 15 (the launch picks the instance): the ring row at which a
+// lane's reads of P(s + m) cross is then known at compile time.
+template <bool kNib, int kO>
+__global__ void __launch_bounds__(kWarpThreads)
+rk_warp_kernel(const uint8_t* __restrict__ text, long long n_bytes,
+               long long n_lim, int m, uint32_t B, uint32_t Bm,
+               const uint32_t* __restrict__ targets, int k,
+               int* __restrict__ nib, int* __restrict__ bs) {
+  extern __shared__ uint32_t smem[];  // the warps' rings, then the targets
+  uint32_t* tgt = smem + kWarps * kRingWords;
+  for (int t = threadIdx.x; t < k; t += kWarpThreads) tgt[t] = targets[t];
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  uint32_t* ring = smem + warp * kRingWords;
+  const long long n_blocks = n_bytes / kBlockBytes;
+  const long long n_warps = (long long)gridDim.x * kWarps;
+  const long long span = (n_blocks + n_warps - 1) / n_warps;
+  const long long b0 = ((long long)blockIdx.x * kWarps + warp) * span;
+  const long long b_end = b0 + span < n_blocks ? b0 + span : n_blocks;
+  if (b0 >= b_end) return;  // the whole warp: no lane reaches a shuffle
+
+  // Bt[t] = B^t; Bd[r] = B^(16 * 2^r), the scan's steps.
+  uint32_t Bt[16];
+  Bt[0] = 1u;
+#pragma unroll
+  for (int t = 1; t < 16; ++t) Bt[t] = Bt[t - 1] * B;
+  uint32_t Bd[5];
+  Bd[0] = Bt[15] * B;
+#pragma unroll
+  for (int r = 1; r < 5; ++r) Bd[r] = Bd[r - 1] * Bd[r - 1];
+  const uint32_t nBm = 0u - Bm;
+
+  // P(512b + 16l + t) of the block whose bytes are v into ring row
+  // 32 * slot + l; carry is P at the block's first byte on entry and at the
+  // next block's on return.
+  uint32_t carry = 0u;
+  auto prefixes = [&](const uint4& v, int slot) {
+    uint32_t P[16];
+    uint32_t L = 0u;  // Horner over the lane's bytes, from 0
+#pragma unroll
+    for (int t = 0; t < 16; ++t) {
+      P[t] = L;
+      L = L * B + byte_at(v, t);
+    }
+    // S: sum over lanes l' <= l of L(l') * B^(16(l - l')), the carry
+    // entering as lane 0's term carry * B^16: P at the lane's last byte + 1.
+    uint32_t S = lane == 0 ? L + carry * Bd[0] : L;
+#pragma unroll
+    for (int r = 0; r < 5; ++r) {
+      const uint32_t y = __shfl_up_sync(kFull, S, 1 << r);
+      if (lane >= 1 << r) S += y * Bd[r];
+    }
+    uint32_t E = __shfl_up_sync(kFull, S, 1);
+    if (lane == 0) E = carry;
+    carry = __shfl_sync(kFull, S, 31);
+#pragma unroll
+    for (int t = 0; t < 16; ++t) P[t] += E * Bt[t];
+    uint4* w = reinterpret_cast<uint4*>(ring + (32 * slot + lane) * kRowWords);
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      w[c] = make_uint4(P[4 * c], P[4 * c + 1], P[4 * c + 2], P[4 * c + 3]);
+  };
+
+  // Lane l's candidate bits of block b (bit t: start s = 16l + t), from
+  // the ring: P(s) is column t of the lane's own row, 32 * slot(b) + l;
+  // P(s + m), prefix slot(b) * 512 + 16l + m + t, is column (kO + t) mod 16
+  // of row q0 = 32 * slot(b) + l + m / 16 (mod 64) for t < 16 - kO and of
+  // row q0 + 1 after, read as the 16-byte chunks that hold those columns.
+  // The targets are compared four at a time from registers, then one at a
+  // time.
+  auto hash_hits = [&](long long b) -> uint32_t {
+    const int own = (int)(b & 1) * 32 + lane;
+    const int q0 = (own + (m >> 4)) & 63;
+    const uint4* row = reinterpret_cast<const uint4*>(ring + own * kRowWords);
+    const uint4* row0 = reinterpret_cast<const uint4*>(ring + q0 * kRowWords);
+    const uint4* row1 = reinterpret_cast<const uint4*>(ring + ((q0 + 1) & 63) * kRowWords);
+    uint4 c0[4], c1[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      c0[c] = 4 * c + 3 >= kO ? row0[c] : make_uint4(0u, 0u, 0u, 0u);
+      c1[c] = 4 * c < kO ? row1[c] : make_uint4(0u, 0u, 0u, 0u);
+    }
+    uint32_t H[16];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const uint4 near = row[c];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int col = kO + 4 * c + i;
+        const uint32_t far = col < 16 ? word_of(c0[col >> 2], col & 3)
+                                      : word_of(c1[(col - 16) >> 2], col & 3);
+        H[4 * c + i] = far + nBm * word_of(near, i);
+      }
+    }
+    // Four targets at a time from registers, each start's bit set where
+    // one equals its hash; then the rest one at a time into one predicate
+    // per lane, the bits built only in the rare warp where one holds.
+    uint32_t hits = 0u;
+    int p = 0;
+    for (; p + 4 <= k; p += 4) {
+      const uint4 tp = *reinterpret_cast<const uint4*>(tgt + p);
+#pragma unroll
+      for (int t = 0; t < 16; ++t)
+        if (H[t] == tp.x || H[t] == tp.y || H[t] == tp.z || H[t] == tp.w) hits |= 1u << t;
+    }
+    const int rest = p;
+    bool any = false;
+    for (; p < k; ++p) {
+      const uint32_t tp = tgt[p];
+#pragma unroll
+      for (int t = 0; t < 16; ++t) any |= H[t] == tp;
+    }
+    if (__any_sync(kFull, any))
+      for (p = rest; p < k; ++p) {
+        const uint32_t tp = tgt[p];
+#pragma unroll
+        for (int t = 0; t < 16; ++t)
+          if (H[t] == tp) hits |= 1u << t;
+      }
+    if ((b + 1) * kBlockBytes > n_lim) {  // starts past n_lim
+      const long long room = n_lim - b * kBlockBytes - 16 * lane + 1;
+      if (room < 16) hits &= room <= 0 ? 0u : (1u << room) - 1u;
+    }
+    return hits;
+  };
+
+  auto emit = [&](long long b, uint32_t hits) {
+    if (kNib)
+      reinterpret_cast<uint4*>(nib)[b * 32 + lane] =
+          make_uint4(hits & 0xFu, (hits >> 4) & 0xFu, (hits >> 8) & 0xFu, hits >> 12);
+    const int count = (int)__reduce_add_sync(kFull, (unsigned)__popc(hits));
+    if (lane == 0) bs[b] = count;
+  };
+
+  // Block b's starts: block b + 1's prefixes go to the ring's other slot,
+  // from the prefetched bytes, and the bytes of block b + 2 are fetched if
+  // the span needs them.
+  uint4 ahead = load16(text, (b0 + 1) * kBlockBytes + 16 * lane, n_bytes);
+  prefixes(load16(text, b0 * kBlockBytes + 16 * lane, n_bytes), (int)(b0 & 1));
+  for (long long b = b0; b < b_end; ++b) {
+    const uint4 v = ahead;
+    if (b + 2 <= b_end) ahead = load16(text, (b + 2) * kBlockBytes + 16 * lane, n_bytes);
+    prefixes(v, (int)((b + 1) & 1));
+    __syncwarp();
+    emit(b, hash_hits(b));
+    __syncwarp();  // block b's slot is block b + 2's next
+  }
+}
+
+// The 16 instances of rk_warp_kernel<kNib, kO>, by kO.
+template <bool kNib, int... kO>
+const void* const* warp_kernels(std::integer_sequence<int, kO...>) {
+  static const void* const table[] = {(const void*)rk_warp_kernel<kNib, kO>...};
+  return table;
+}
+
+template <bool kNib>
+int launch_warp(const void* text, long long n_bytes, long long n_lim, int m,
+                unsigned int B, unsigned int Bm, const void* targets, int k,
+                void* nib, void* bs, void* stream) {
+  if (n_bytes % kBlockBytes != 0 || m < 1 || m > kMaxPattern || k < 1 ||
+      (B & 1u) == 0u || reinterpret_cast<uintptr_t>(text) % 16 != 0 ||
+      (kNib && reinterpret_cast<uintptr_t>(nib) % 16 != 0))
+    return (int)cudaErrorInvalidValue;
+  const long long n_blocks = n_bytes / kBlockBytes;
+  if (n_blocks == 0) return 0;
+  const void* kernel = warp_kernels<kNib>(std::make_integer_sequence<int, 16>())[m & 15];
+  const size_t smem = kRingSmem + (size_t)k * sizeof(uint32_t);
+  if (smem > 48 * 1024)
+    if (cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem))
+      return (int)err;
+  static tpm::GridCache ctas[16];
+  unsigned grid = 0;
+  if (int err = tpm::persistent_grid(kernel, kWarpThreads, smem,
+                                     (n_blocks + kWarps - 1) / kWarps, &ctas[m & 15],
+                                     &grid))
+    return err;
+  const uint8_t* text_arg = (const uint8_t*)text;
+  const uint32_t* targets_arg = (const uint32_t*)targets;
+  int* nib_arg = (int*)nib;
+  int* bs_arg = (int*)bs;
+  void* args[] = {&text_arg, &n_bytes, &n_lim, &m, &B, &Bm, &targets_arg, &k,
+                  &nib_arg, &bs_arg};
+  if (cudaError_t err = cudaLaunchKernel(kernel, grid, kWarpThreads, args, smem,
+                                         (cudaStream_t)stream))
+    return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// K6 and K10c: a thread per block rolling H
+// ---------------------------------------------------------------------------
+
+constexpr int kThreads = 128;
+
+// What a block's scan emits: K6's pattern mask or K10c's group occupancy
+// mask.
+enum class Emit { kPmask, kBmask };
 
 template <Emit kEmit>
 __global__ void __launch_bounds__(kThreads)
 rk_scan_kernel(const uint8_t* __restrict__ text, long long n_bytes,
                long long n_lim, int m, uint32_t B, uint32_t Bm,
                const uint32_t* __restrict__ targets, int k,
-               int* __restrict__ nib, int* __restrict__ bs) {
+               int* __restrict__ bs) {
   extern __shared__ uint32_t tgt[];  // the k target hashes
   for (int t = threadIdx.x; t < k; t += kThreads) tgt[t] = targets[t];
   __syncthreads();
@@ -97,11 +356,7 @@ rk_scan_kernel(const uint8_t* __restrict__ text, long long n_bytes,
   const int sh = (-m) & 3;
 
   uint32_t H = 0u;
-  uint32_t out = 0u;  // K5, K10b: candidate count; K6: pattern-hit mask;
-                      // K10c: group occupancy mask
-  uint32_t group = 0u;  // K10b: starts 16g..16g+15, bit j & 15
-  uint4* nib4 =
-      kEmit == Emit::kNib ? reinterpret_cast<uint4*>(nib + base / 4) : nullptr;
+  uint32_t out = 0u;  // K6: pattern-hit mask; K10c: group occupancy mask
   for (int q = 0; q < steps; q += 16) {
     const uint4 v = load16(text, base + q, n_bytes);
     const int wrel = (q - m + kBlockBytes) / 4 - kBlockBytes / 4;
@@ -127,19 +382,7 @@ rk_scan_kernel(const uint8_t* __restrict__ text, long long n_bytes,
         bool hit = false;
         if (j >= 0 && j < lim)
           for (int p = 0; p < k; ++p) hit |= H == tgt[p];
-        if (kEmit == Emit::kBmask) {
-          if (hit) out |= 1u << (j >> 5);  // a hit has 0 <= j < lim <= 512
-        } else {
-          out += (uint32_t)hit;
-        }
-        if (kEmit == Emit::kNib && j >= 0 && j < kBlockBytes) {
-          group |= (uint32_t)hit << (j & 15);
-          if ((j & 15) == 15) {
-            nib4[j >> 4] = make_uint4(group & 0xFu, (group >> 4) & 0xFu,
-                                      (group >> 8) & 0xFu, group >> 12);
-            group = 0u;
-          }
-        }
+        if (hit) out |= 1u << (j >> 5);  // a hit has 0 <= j < lim <= 512
       }
     }
   }
@@ -149,11 +392,10 @@ rk_scan_kernel(const uint8_t* __restrict__ text, long long n_bytes,
 template <Emit kEmit>
 int launch_scan(const void* text, long long n_bytes, long long n_lim, int m,
                 unsigned int B, unsigned int Bm, const void* targets, int k,
-                void* nib, void* bs, void* stream) {
+                void* bs, void* stream) {
   if (n_bytes % kBlockBytes != 0 || m < 1 || m > kMaxPattern || k < 1 ||
       (kEmit == Emit::kPmask && k > 31) || (B & 1u) == 0u ||
-      reinterpret_cast<uintptr_t>(text) % 16 != 0 ||
-      (kEmit == Emit::kNib && reinterpret_cast<uintptr_t>(nib) % 16 != 0))
+      reinterpret_cast<uintptr_t>(text) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const long long n_blocks = n_bytes / kBlockBytes;
   if (n_blocks == 0) return 0;
@@ -161,7 +403,7 @@ int launch_scan(const void* text, long long n_bytes, long long n_lim, int m,
   rk_scan_kernel<kEmit><<<grid, kThreads, (size_t)k * sizeof(uint32_t),
                           (cudaStream_t)stream>>>(
       (const uint8_t*)text, n_bytes, n_lim, m, B, Bm,
-      (const uint32_t*)targets, k, (int*)nib, (int*)bs);
+      (const uint32_t*)targets, k, (int*)bs);
   return (int)cudaGetLastError();
 }
 
@@ -176,8 +418,8 @@ int tpm_rk_candidate_bsums(const void* text, long long n_bytes,
                            long long n_lim, int m, unsigned int B,
                            unsigned int Bm, const void* targets, int k,
                            void* bs, void* stream) {
-  return launch_scan<Emit::kCount>(text, n_bytes, n_lim, m, B, Bm, targets, k,
-                                   nullptr, bs, stream);
+  return launch_warp<false>(text, n_bytes, n_lim, m, B, Bm, targets, k,
+                            nullptr, bs, stream);
 }
 
 // The same arguments; k must be in 1..31.  bs[b] gets the k-bit mask.
@@ -186,7 +428,7 @@ int tpm_rk_candidate_pmask(const void* text, long long n_bytes,
                            unsigned int Bm, const void* targets, int k,
                            void* bs, void* stream) {
   return launch_scan<Emit::kPmask>(text, n_bytes, n_lim, m, B, Bm, targets, k,
-                                   nullptr, bs, stream);
+                                   bs, stream);
 }
 
 // The same arguments as tpm_rk_candidate_bsums; any k >= 1.  bs[b] gets the
@@ -196,7 +438,7 @@ int tpm_rk_candidate_bmask(const void* text, long long n_bytes,
                            unsigned int Bm, const void* targets, int k,
                            void* bs, void* stream) {
   return launch_scan<Emit::kBmask>(text, n_bytes, n_lim, m, B, Bm, targets, k,
-                                   nullptr, bs, stream);
+                                   bs, stream);
 }
 
 // The same arguments as tpm_rk_candidate_bsums, plus nib: n_bytes / 4 ints,
@@ -205,8 +447,8 @@ int tpm_rk_candidate_nib(const void* text, long long n_bytes, long long n_lim,
                          int m, unsigned int B, unsigned int Bm,
                          const void* targets, int k, void* nib, void* bs,
                          void* stream) {
-  return launch_scan<Emit::kNib>(text, n_bytes, n_lim, m, B, Bm, targets, k,
-                                 nib, bs, stream);
+  return launch_warp<true>(text, n_bytes, n_lim, m, B, Bm, targets, k, nib, bs,
+                           stream);
 }
 
 }  // extern "C"

@@ -30,6 +30,39 @@ __device__ __forceinline__ uint4 load16(const uint8_t* __restrict__ text,
                      : make_uint4(0u, 0u, 0u, 0u);
 }
 
+constexpr int kMaxDevices = 64;
+
+// CTAs of a persistent scan: every SM filled to the kernel's occupancy at
+// `threads` threads and `smem` bytes of dynamic shared memory, at most one
+// per item of work.  The SM count times CTAs per SM is computed once per
+// device into cache[device] (and again if smem changes).
+struct GridCache {
+  int ctas[kMaxDevices];
+  size_t smem[kMaxDevices];
+};
+
+inline int persistent_grid(const void* kernel, int threads, size_t smem,
+                           long long n_items, GridCache* cache,
+                           unsigned* grid) {
+  int dev = 0;
+  if (cudaError_t err = cudaGetDevice(&dev)) return (int)err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (cache->ctas[dev] == 0 || cache->smem[dev] != smem) {
+    int sms = 0, per_sm = 0;
+    if (cudaError_t err =
+            cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))
+      return (int)err;
+    if (cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, kernel, threads, smem))
+      return (int)err;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    cache->ctas[dev] = sms * per_sm;
+    cache->smem[dev] = smem;
+  }
+  *grid = (unsigned)(n_items < cache->ctas[dev] ? n_items : cache->ctas[dev]);
+  return 0;
+}
+
 // Byte b (0..15, a compile-time constant after unrolling) of a 16-byte group.
 __device__ __forceinline__ uint32_t byte_of(const uint4& v, int b) {
   const uint32_t w = b < 4 ? v.x : b < 8 ? v.y : b < 12 ? v.z : v.w;

@@ -32,6 +32,7 @@ namespace {
 using tpm::kBlockBytes;
 using tpm::kBlockWords;
 using tpm::load_word;
+using tpm::persistent_grid;
 
 constexpr int kGroupWords = 8 * kBlockWords;  // one 4 KiB group of K11d
 
@@ -55,7 +56,6 @@ constexpr int kBufWords = kTileWords + kMaxPatternWords + 4;
 constexpr size_t kTileSmem = 2 * kBufWords * sizeof(uint32_t);  // two buffers
 // 16-byte chunks of a tile buffer that each thread copies.
 constexpr int kChunks = (kBufWords / 4 + kScanThreads - 1) / kScanThreads;
-constexpr int kMaxDevices = 64;
 // Within the 48 KB a launch gets without cudaFuncSetAttribute, the
 // pattern's staged words included (naive_kernel).
 static_assert(kTileSmem + 8 * kMaxPatternWords * sizeof(uint32_t) <= 48 * 1024,
@@ -299,28 +299,6 @@ naive_kernel(const uint32_t* __restrict__ words, long long n_words,
   });
 }
 
-// CTAs of a persistent scan: every SM filled to the kernel's occupancy
-// (computed once per device into cache[device]), at most one per tile.
-int persistent_grid(const void* kernel, size_t smem, long long n_tiles,
-                    int* cache, unsigned* grid) {
-  int dev = 0;
-  if (cudaError_t err = cudaGetDevice(&dev)) return (int)err;
-  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (cache[dev] == 0) {
-    int sms = 0, per_sm = 0;
-    if (cudaError_t err =
-            cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))
-      return (int)err;
-    if (cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, kernel, kScanThreads, smem))
-      return (int)err;
-    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-    cache[dev] = sms * per_sm;
-  }
-  *grid = (unsigned)(n_tiles < cache[dev] ? n_tiles : cache[dev]);
-  return 0;
-}
-
 // Whether both probe words of alignment a compare equal under their masks
 // at word w (K11a's probe compare, read from global memory).
 __device__ __forceinline__ bool probe_hit(const uint32_t* __restrict__ words,
@@ -537,10 +515,10 @@ int launch_naive(const void* words, long long n_words, long long n_lim,
   if (n_words == 0) return 0;
   // The tile buffers, then the pattern's 8 nw words (room for the largest).
   const size_t smem = kTileSmem + 8 * kMaxPatternWords * sizeof(uint32_t);
-  static int ctas[kMaxDevices];
+  static tpm::GridCache ctas;
   unsigned grid = 0;
-  if (int err = persistent_grid((const void*)naive_kernel<kEmitNib>, smem,
-                                tiles_of(n_words), ctas, &grid))
+  if (int err = persistent_grid((const void*)naive_kernel<kEmitNib>, kScanThreads,
+                                smem, tiles_of(n_words), &ctas, &grid))
     return err;
   naive_kernel<kEmitNib><<<grid, kScanThreads, smem, (cudaStream_t)stream>>>(
       (const uint32_t*)words, n_words, n_lim, (const uint32_t*)P,
@@ -582,10 +560,10 @@ int tpm_screen_cand_bsums(const void* words, long long n_words, long long n_lim,
   int halo = 0;  // the largest probe offset
   for (int a = 0; a < 4; ++a)
     for (int s = 0; s < 2; ++s) halo = pr.k[a][s] > halo ? pr.k[a][s] : halo;
-  static int ctas[kMaxDevices];
+  static tpm::GridCache ctas;
   unsigned grid = 0;
-  if (int err = persistent_grid((const void*)screen_cand_kernel, kTileSmem,
-                                tiles_of(n_words), ctas, &grid))
+  if (int err = persistent_grid((const void*)screen_cand_kernel, kScanThreads,
+                                kTileSmem, tiles_of(n_words), &ctas, &grid))
     return err;
   screen_cand_kernel<<<grid, kScanThreads, kTileSmem, (cudaStream_t)stream>>>(
       (const uint32_t*)words, n_words, n_lim, (const uint32_t*)P,

@@ -6,13 +6,14 @@ The window hash ``H = sum_j x[s+j] * B^(m-1-j) mod 2**32``
 ``H <- H*B + in - out*B^m``, and windows whose hash equals a target are
 candidate starts; the caller verifies them.
 
-Four kernels (``csrc/rk_roll.cu``, one template): K5 ``rk_candidate_bsums``
-counts candidate starts per 512-byte block; K6 ``rk_candidate_pmask`` sets,
-per block, bit p when a start hashes to pattern p (the multi-pattern
-screen, k <= 31); K10b ``rk_candidate_nib`` writes K5's counts and the
-candidate nibble plane (``emission='nib'``); K10c ``rk_candidate_bmask``
-sets, per block, bit g when a start in its 32-byte group g hashes to any
-target (``multi_gather='groups'``).  Each has a plain PyTorch version in
+Four kernels (``csrc/rk_roll.cu``): K5 ``rk_candidate_bsums`` counts
+candidate starts per 512-byte block and K10b ``rk_candidate_nib`` writes
+K5's counts and the candidate nibble plane (``emission='nib'``), both a
+warp per block on prefix hashes; K6 ``rk_candidate_pmask`` sets, per
+block, bit p when a start hashes to pattern p (the multi-pattern screen,
+k <= 31) and K10c ``rk_candidate_bmask`` sets, per block, bit g when a
+start in its 32-byte group g hashes to any target
+(``multi_gather='groups'``), both one rolling thread per block.  Each has a plain PyTorch version in
 this module and a launch counter (``.launches``).  A wrapper runs the plain version for a CPU
 tensor and launches the kernel for a CUDA tensor; there is no other route.
 The region geometry is the Shift-AND kernel's

@@ -121,7 +121,8 @@ def _placed(words: np.ndarray, where: str, device) -> torch.Tensor:
     allocation of whole 2 MiB pages, at least 10 MiB so that the caching
     allocator maps it on its own, with nothing after it.  'lead': one word
     into a buffer of -1 words, which also follow it: a start off its
-    16-byte line, and garbage wherever a read past the end would land."""
+    16-byte line, and garbage wherever a read past the end would land.
+    'lead16': the same, 16 bytes in."""
     n = words.size
     if where == "end":
         torch.cuda.empty_cache()
@@ -129,8 +130,9 @@ def _placed(words: np.ndarray, where: str, device) -> torch.Tensor:
         buf = torch.full((total,), -1, dtype=torch.int32, device=device)
         region = buf[total - n:]
     else:
-        buf = torch.full((n + 1 + 128,), -1, dtype=torch.int32, device=device)
-        region = buf[1 : 1 + n]
+        lead = 4 if where == "lead16" else 1
+        buf = torch.full((n + lead + 128,), -1, dtype=torch.int32, device=device)
+        region = buf[lead : lead + n]
     region.copy_(torch.from_numpy(words.copy()))
     return region
 
@@ -178,6 +180,63 @@ def test_tiled_scans_bit_exact_on_ragged_regions(length, pat, where, cuda_device
             nib_p, bs_p = swar.naive_nib_plain(words, n_lim, P, M)
             assert torch.equal(nib, nib_p) and torch.equal(bs2, bs_p), f"K2, {what}"
             assert torch.equal(bs3, bs_p), f"K3, {what}"
+            assert int(bs_p.sum()) > 0
+        del words
+
+
+RK_SCANS = [(2, 1, None), (2, 8, None), (16, 1, None), (16, 8, None),
+            (509, 1, None), (509, 8, None), (16, 8, 0x9E3779B1)]
+
+
+@pytest.mark.parametrize("where", ["end", "lead16"])
+@pytest.mark.parametrize("m,k,base", RK_SCANS,
+                         ids=[f"m{m}-k{k}{'-odd' if b else ''}" for m, k, b in RK_SCANS])
+@pytest.mark.parametrize("length", [1, 31, 32, 33, 97, "span+1"])
+def test_rk_scans_bit_exact_on_ragged_regions(length, m, k, base, where, cuda_device):
+    """K5 and K10b (a warp per block over a persistent grid) equal their
+    plain versions bit for bit (tolerance 0) on regions of 1, 31, 32, 33
+    and 97 blocks and of one tile more than a whole number of grid spans
+    (as in test_tiled_scans_bit_exact_on_ragged_regions), with n_lim
+    mid-way into the last block and at its last byte, k targets (the first
+    planted in the region) and the default or another odd base; each
+    launch counts once.  K6 and K10c, whose kernel is the rolling thread
+    per block, run beside them as a control.  'lead16' places the region
+    16 bytes into a buffer of -1 words (the RK wrappers refuse a start off
+    its 16-byte line)."""
+    pat = (bytes(range(1, 256)) + bytes(range(1, 255)))[:m] if m == 509 else (
+        b"quick brown fox "[:m])
+    base = int(tables.RK_BASE) if base is None else base
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    lengths = ([TILE_BLOCKS * (sms * c + 1) for c in range(1, 9)]
+               if length == "span+1" else [length])
+    c = tables.rk_constants(m, base)
+    for blocks in lengths:
+        host = _ragged_region(blocks, pat)
+        text = host.tobytes()
+        pats = [pat] + [text[(97 * i) % (len(text) - m) :][:m] for i in range(1, k)]
+        tgt = torch.tensor([int(tables.rk_hash(_u8(p), c)) for p in pats],
+                           device=cuda_device)
+        words = _placed(host, where, cuda_device)
+        n = 4 * words.numel()
+        for n_lim in (n - 512 + 137, n - 1):
+            what = f"{blocks} blocks, n_lim {n_lim}"
+            counts = (rk_roll.rk_candidate_bsums.launches, rk_roll.rk_candidate_nib.launches,
+                      rk_roll.rk_candidate_pmask.launches, rk_roll.rk_candidate_bmask.launches)
+            bs = rk_roll.rk_candidate_bsums(words, n_lim, tgt, m, base)
+            nib, bs10 = rk_roll.rk_candidate_nib(words, n_lim, tgt, m, base)
+            pm = rk_roll.rk_candidate_pmask(words, n_lim, tgt, m, base)
+            bm = rk_roll.rk_candidate_bmask(words, n_lim, tgt, m, base)
+            torch.cuda.synchronize()
+            assert (rk_roll.rk_candidate_bsums.launches, rk_roll.rk_candidate_nib.launches,
+                    rk_roll.rk_candidate_pmask.launches,
+                    rk_roll.rk_candidate_bmask.launches) == tuple(x + 1 for x in counts)
+            nib_p, bs_p = rk_roll.rk_candidate_nib_plain(words, n_lim, tgt, m, base)
+            assert torch.equal(bs, bs_p), f"K5, {what}"
+            assert torch.equal(nib, nib_p) and torch.equal(bs10, bs_p), f"K10b, {what}"
+            assert torch.equal(pm, rk_roll.rk_candidate_pmask_plain(
+                words, n_lim, tgt, m, base)), f"K6, {what}"
+            assert torch.equal(bm, rk_roll.rk_candidate_bmask_plain(
+                words, n_lim, tgt, m, base)), f"K10c, {what}"
             assert int(bs_p.sum()) > 0
         del words
 

@@ -12,14 +12,17 @@ source, in parallel), then:
     corpus and on ragged regions (1, 31, 32, 33 and 97 blocks and one tile
     past a whole number of grid spans; each a fresh tensor that ends its
     allocation or starts off its 16-byte line; n_lim in the last block; K1
-    under three probe layouts); K5 ``rk_candidate_bsums`` and K10b
-    ``rk_candidate_nib`` on the same ragged lengths (m=16 and m=509 with
-    one target, m=16 with k=8; regions that end their allocation or start
-    16 bytes into a buffer); K4 ``kmp_bsums`` (K = 1 at m=16, the m=64
+    under three probe layouts); K5 ``rk_candidate_bsums``, K10b
+    ``rk_candidate_nib``, K6 ``rk_candidate_pmask`` and K10c
+    ``rk_candidate_bmask`` on the same ragged lengths (m=16 and m=509 with
+    one target, m=16 with k=8, 31 and 40, K6 up to k=31; regions that end
+    their allocation or start 16 bytes into a buffer); K4 ``kmp_bsums``
+    (K = 1 at m=16, the m=64
     screen on pattern[:32], K = 2 at m=64, K = 8 at m=256), K5
     ``rk_candidate_bsums`` (m=16, m=509, and k=8 targets) and K6
     ``rk_candidate_pmask`` (k=8 m=16 with BASELINE config 2's patterns,
-    k=31 m=12, k=2 m=509, k=1 m=2) on English and DNA;
+    k=31 m=12, k=2 m=509, k=1 m=2; nonzero exactly where K5 is at k=8) on
+    English and DNA;
 (b) drives ``match()`` for every algorithm (the defaults: Boyer-Moore,
     then naive, KMP and Rabin-Karp) on 256 MiB English, DNA and UTF-8
     corpora against the pure-Python oracle; KMP also at m=4, 64 and 256,
@@ -72,14 +75,14 @@ source, in parallel), then:
     against the oracle, and on the dense 64 MiB text, whose occupied groups
     outnumber cap_g, against the oracle on the listed groups;
 (e) times every kernel and its plain version with CUDA events (K9 beside
-    K4 / K10a at the same m, K10c beside K6; K1-K3, K5 and K10b also by
-    their own device time per call from torch.profiler, their time in the
-    JSON line), ``match``
+    K4 / K10a at the same m, K10c beside K6; K1-K3, K5, K6, K10b and K10c
+    also by their own device time per call from torch.profiler, their time
+    in the JSON line), ``match``
     per algorithm on a device-resident text (host clock, and device time
     and idle share from torch.profiler), sparse and 'nib' in alternating
     passes, and from host bytes, the KMP dense-DFA tail at m=509, K6,
-    K10b and K10c at 256 MiB and 1 GB (K10b there also by device time and
-    held against its plain version), config 2's
+    K10b and K10c at 256 MiB and 1 GB (there also by device time, against
+    their bound and held against their plain versions), config 2's
     ``RabinKarpMultiMatcher.run`` on the device-resident 1 GB text (sparse
     'pselect', 'groups' and 'nib' in alternating passes) and from host
     bytes, the 'cursor' route on the device-resident 256 MiB text, K11a
@@ -103,6 +106,7 @@ without CUDA the script exits with code 2 before printing any result.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
 import json
@@ -317,10 +321,11 @@ def placed(words, where: str, dev):
     return region
 
 
-def device_profile(fn, runs: int) -> tuple[float, float]:
-    """(device ms per run, device events per run) of ``fn()`` under
-    torch.profiler: the summed durations of the events that ran on the
-    card (kernels, copies, memsets), each counted once."""
+def device_profile(fn, runs: int) -> tuple[float, float, dict]:
+    """(device ms per run, device events per run, device ms per run of the
+    six event names that take the most) of ``fn()`` under torch.profiler:
+    the summed durations of the events that ran on the card (kernels,
+    copies, memsets), each counted once."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -330,10 +335,12 @@ def device_profile(fn, runs: int) -> tuple[float, float]:
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
-    on_card = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_us = sum(e.time_range.elapsed_us() for e in on_card)
-    return dev_us / 1e3 / runs, len(on_card) / runs
+    split, events = collections.Counter(), 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            split[e.name] += e.time_range.elapsed_us() / 1e3 / runs
+            events += 1
+    return sum(split.values()), events / runs, dict(split.most_common(6))
 
 
 def main() -> int:
@@ -535,14 +542,16 @@ def main() -> int:
         lines.append(f"ragged m={len(pat)}: K1 (3 layouts), K2, K3 on {len(ragged)} lengths "
                      f"({ragged[0]}..{ragged[-1]} blocks) x 2 placements x 2 n_lim: "
                      f"{held} holds, max_abs_err 0, {matches} matches in all")
-    # K5 and K10b (a warp per block over a persistent grid) at the same
-    # lengths and n_lim: m=16 and m=509 with one target, m=16 with k=8 (the
-    # pattern and seven slices of the region); each a fresh region that
-    # ends its allocation or starts 16 bytes into a buffer of -1 words (the
-    # RK wrappers refuse a start off its 16-byte line).
+    # K5, K10b, K6 and K10c (one warp-per-block kernel over a persistent
+    # grid) at the same lengths and n_lim: m=16 and m=509 with one target,
+    # m=16 with k=8, 31 (K6's widest mask) and 40 (past it: K6 not run)
+    # targets (the pattern and slices of the region); each a fresh region
+    # that ends its allocation or starts 16 bytes into a buffer of -1 words
+    # (the RK wrappers refuse a start off its 16-byte line).
     base = int(tables.RK_BASE)
     for pat, k in ((b"quick brown fox ", 1), (RAGGED_PATTERNS[3], 1),
-                   (b"quick brown fox ", 8)):
+                   (b"quick brown fox ", 8), (b"quick brown fox ", 31),
+                   (b"quick brown fox ", 40)):
         m = len(pat)
         c = tables.rk_constants(m, base)
         held = cands = 0
@@ -563,10 +572,20 @@ def main() -> int:
                     hold("rk_candidate_nib", what,
                          rk_roll.rk_candidate_nib(words, lim, tgt, m, base), (nib_p, bs_p),
                          quiet=True)
-                    held += 2
+                    if k <= rk_roll.MAX_PMASK_PATTERNS:
+                        hold("rk_candidate_pmask", what,
+                             rk_roll.rk_candidate_pmask(words, lim, tgt, m, base),
+                             rk_roll.rk_candidate_pmask_plain(words, lim, tgt, m, base),
+                             quiet=True)
+                        held += 1
+                    hold("rk_candidate_bmask", what,
+                         rk_roll.rk_candidate_bmask(words, lim, tgt, m, base),
+                         rk_roll.rk_candidate_bmask_plain(words, lim, tgt, m, base), quiet=True)
+                    held += 3
                     cands += int(bs_p.sum())
                 del words
-        lines.append(f"ragged RK m={m} k={k}: K5, K10b on {len(ragged)} lengths x 2 "
+        which = "K5, K10b, K6, K10c" if k <= rk_roll.MAX_PMASK_PATTERNS else "K5, K10b, K10c"
+        lines.append(f"ragged RK m={m} k={k}: {which} on {len(ragged)} lengths x 2 "
                      f"placements (end, lead16) x 2 n_lim: {held} holds, max_abs_err 0, "
                      f"{cands} candidates in all")
     torch.cuda.empty_cache()
@@ -620,7 +639,9 @@ def main() -> int:
                 bs = rk_roll.rk_candidate_bsums(region, lim, tgt, m, base)
                 hold("rk_candidate_bsums", f"{name} {what} (blocks route)", bs,
                      rk_roll.rk_candidate_bsums_plain(region, lim, tgt, m, base))
-                lines.append(f"  {name} {what}: hash candidates {int(bs.sum())}")
+                assert torch.equal(pm != 0, bs != 0), f"rk_candidate_pmask vs K5 on {what}"
+                lines.append(f"  {name} {what}: hash candidates {int(bs.sum())}, K6 "
+                             f"nonzero exactly where K5 is")
     # (a') K10a and K10b on every corpus, against their plain versions and
     # the ported kernels with the same answer.
     base = int(tables.RK_BASE)
@@ -1184,8 +1205,8 @@ def main() -> int:
     # stops at its first mismatch); three per state word per byte for the
     # automaton (shift, OR-AND, carry), whatever step or lookup K9 takes,
     # since every variant computes K4's / K10a's function; two multiply-adds
-    # plus one compare per target per byte for the rolling hash (two for a
-    # pattern mask).
+    # plus one compare per target per byte for the hash, the same for K6's
+    # pattern mask: a start's pattern bits are needed only where it hits.
     words, bsb = Nk / 4, Nk / 128
     n_probe = sum(len(ks) for ks in probes)
     nw = P.shape[1]
@@ -1199,7 +1220,7 @@ def main() -> int:
         ("rk_candidate_bsums", "m=16"): (Nk + bsb, Nk * 3),
         ("rk_candidate_bsums", "m=509"): (Nk + bsb, Nk * 3),
         ("rk_candidate_bsums", "k=8 m=16"): (Nk + bsb, Nk * 10),
-        ("rk_candidate_pmask", "k=8 m=16"): (Nk + bsb, Nk * 18),
+        ("rk_candidate_pmask", "k=8 m=16"): (Nk + bsb, Nk * 10),
         ("screened_nib", "m=16 K7"): (2 * Nk + bsb, screen_ops),
         ("screened_nib", "m=16 K8"): (2 * Nk + bsb, screen_ops),
         ("screened_bsums", "m=16 K7"): (Nk + bsb, screen_ops),
@@ -1306,14 +1327,17 @@ def main() -> int:
         cases[("gather_verify", f"m=16 cap_g={c}")] = (
             functools.partial(swar.gather_verify, region, g8, limit, P, M),
             functools.partial(swar.gather_verify_plain, region, g8, limit, P, M), 5)
-    # K1-K3, K5 and K10b take 0.1-0.3 ms, where back-to-back event times
-    # can measure the host's launch path: each also reports its own device
-    # time per call from the profiler, and that is its time in the JSON line.
+    # K1-K3, K5, K6, K10b and K10c take 0.1-0.3 ms, where back-to-back event
+    # times can measure the host's launch path: each also reports its own
+    # device time per call from the profiler, and that is its time in the
+    # JSON line.
     own_kernel = {"screen_cand_bsums": ("screen_cand_kernel", swar.screen_cand_bsums),
                   "naive_nib": ("naive_kernel", swar.naive_nib),
                   "naive_bsums": ("naive_kernel", swar.naive_bsums),
                   "rk_candidate_bsums": ("rk_warp_kernel", rk_roll.rk_candidate_bsums),
-                  "rk_candidate_nib": ("rk_warp_kernel", rk_roll.rk_candidate_nib)}
+                  "rk_candidate_nib": ("rk_warp_kernel", rk_roll.rk_candidate_nib),
+                  "rk_candidate_pmask": ("rk_warp_kernel", rk_roll.rk_candidate_pmask),
+                  "rk_candidate_bmask": ("rk_warp_kernel", rk_roll.rk_candidate_bmask)}
     ms, plain_ms, bounds, shape = {}, {}, {}, {}
     for (k, what), (kern, plain, plain_iters) in cases.items():
         kt = cuda_ms(kern, 20)
@@ -1344,7 +1368,7 @@ def main() -> int:
             for e, mt in mts.items():
                 passes[e] += host_ms(lambda: mt.run(padded, n), iters=10, passes=1)
         for e, mt in mts.items():
-            dev_ms, per_run = device_profile(lambda: mt.run(padded, n), runs=5)
+            dev_ms, per_run, _ = device_profile(lambda: mt.run(padded, n), runs=5)
             med = statistics.median(passes[e])
             print(f"(e) match device-resident 256 MiB english m=16 algo={algo} "
                   f"emission={e}: passes {[round(x, 4) for x in passes[e]]} ms, median "
@@ -1369,19 +1393,36 @@ def main() -> int:
           f"match device-resident m=509: passes {[round(x, 4) for x in run_ms]} ms "
           f"{card}")
 
-    # Config 2 at 1 GB: K6 alone, the per-pattern extraction branch it
-    # leads to, and RabinKarpMultiMatcher.run on the device-resident text.
+    # Config 2 at 1 GB: K6, K10c and K10b alone (events and device time,
+    # against their bound and their plain versions), the per-pattern
+    # extraction branch K6 leads to, and RabinKarpMultiMatcher.run on the
+    # device-resident text.
     big_dev = to_device(pad_to_multiple(big_np, 2 * MIB), dev)
     nb = len(big)
     mm = RabinKarpMultiMatcher(c2_pats, c2_cfg, device=dev)
     big_region = big_dev.view(torch.int32)  # the padded text is whole tiles
     tgt = mm.dev_tables["hashes"]
-    kt = cuda_ms(lambda: rk_roll.rk_candidate_pmask(big_region, nb - 16, tgt, 16, base), 10)
-    pt = cuda_ms(lambda: rk_roll.rk_candidate_pmask_plain(big_region, nb - 16, tgt, 16, base),
-                 1, warmup=1)
-    print(f"(e) rk_candidate_pmask 1 GB english k=8 m=16 (config 2): kernel {kt:.4f} ms, "
-          f"plain {pt:.4f} ms, {big_region.numel() * 4 / kt / 1e6:.1f} GB/s kernel {card}")
-    torch.cuda.empty_cache()
+
+    def time_1gb(fn, plain, what: str, plane: bool = False) -> None:
+        """Event and device time of ``fn`` on config 2's 1 GB region, held
+        against ``plain``; the bound counts 2 + k operations per byte and a
+        nibble plane's write where there is one."""
+        call = functools.partial(fn, big_region, nb - 16, tgt, 16, base)
+        ref = functools.partial(plain, big_region, nb - 16, tgt, 16, base)
+        kt = cuda_ms(call, 10)
+        dt, seen = kernel_device_ms(call, 10, "rk_warp_kernel", fn)
+        pt = cuda_ms(ref, 1, warmup=1)
+        hold(fn.__name__, f"1 GB english k=8 m=16 ({what})", call(), ref(), quiet=True)
+        b_ms, b_by = bound((2 if plane else 1) * big_dev.numel() + big_dev.numel() / 128,
+                           big_dev.numel() * 10)
+        print(f"(e) {fn.__name__} 1 GB english k=8 m=16 ({what}): max_abs_err 0 against "
+              f"its plain version; kernel {kt:.4f} ms (events), device {dt:.4f} ms per "
+              f"call (profiler, {seen} of 10 launches recorded, {b_ms / dt:.3f} of the "
+              f"bound), plain {pt:.4f} ms, bound {b_ms:.4f} ms by {b_by}, "
+              f"{big_region.numel() * 4 / dt / 1e6:.1f} GB/s kernel {card}")
+        torch.cuda.empty_cache()
+
+    time_1gb(rk_roll.rk_candidate_pmask, rk_roll.rk_candidate_pmask_plain, "config 2")
     pm = rk_roll.rk_candidate_pmask(big_region, nb - 16, tgt, 16, base)
     width = reconstruct.SPARSE_CHUNKS
     for p_i, p in enumerate(c2_pats):
@@ -1391,34 +1432,16 @@ def main() -> int:
               f"{'K2 rescan' if chunks > width else 'chunk gather'} (width {width})")
     del pm
     torch.cuda.empty_cache()
-    kt = cuda_ms(lambda: rk_roll.rk_candidate_bmask(big_region, nb - 16, tgt, 16, base), 10)
-    pt = cuda_ms(lambda: rk_roll.rk_candidate_bmask_plain(big_region, nb - 16, tgt, 16, base),
-                 1, warmup=1)
-    b_ms, b_by = bound(big_dev.numel() + big_dev.numel() / 128, big_dev.numel() * 10)
-    print(f"(e) rk_candidate_bmask 1 GB english k=8 m=16 (config 2 under groups): kernel "
-          f"{kt:.4f} ms, plain {pt:.4f} ms, bound {b_ms:.4f} ms by {b_by}, "
-          f"{big_region.numel() * 4 / kt / 1e6:.1f} GB/s kernel {card}")
+    time_1gb(rk_roll.rk_candidate_bmask, rk_roll.rk_candidate_bmask_plain,
+             "config 2 under groups")
     bm = rk_roll.rk_candidate_bmask(big_region, nb - 16, tgt, 16, base)
     print(f"(e) config 2 under groups: {popcount16(bm)} occupied groups in "
           f"{int((bm != 0).sum())} candidate blocks (gather width "
           f"{reconstruct.MULTI_BLOCK_TIER})")
     del bm
     torch.cuda.empty_cache()
-    k10b = functools.partial(rk_roll.rk_candidate_nib, big_region, nb - 16, tgt, 16, base)
-    k10b_plain = functools.partial(rk_roll.rk_candidate_nib_plain, big_region, nb - 16, tgt,
-                                   16, base)
-    kt = cuda_ms(k10b, 10)
-    dt, seen = kernel_device_ms(k10b, 10, "rk_warp_kernel", rk_roll.rk_candidate_nib)
-    pt = cuda_ms(k10b_plain, 1, warmup=1)
-    hold("rk_candidate_nib", "1 GB english k=8 m=16 (config 2)", k10b(), k10b_plain(),
-         quiet=True)
-    b_ms, b_by = bound(2 * big_dev.numel() + big_dev.numel() / 128, big_dev.numel() * 10)
-    print(f"(e) rk_candidate_nib 1 GB english k=8 m=16 (config 2 under nib): max_abs_err 0 "
-          f"against its plain version; kernel {kt:.4f} ms (events), device {dt:.4f} ms per "
-          f"call (profiler, {seen} of 10 launches recorded, {b_ms / dt:.3f} of the bound), "
-          f"plain {pt:.4f} ms, bound {b_ms:.4f} ms by {b_by}, "
-          f"{big_region.numel() * 4 / dt / 1e6:.1f} GB/s kernel {card}")
-    torch.cuda.empty_cache()
+    time_1gb(rk_roll.rk_candidate_nib, rk_roll.rk_candidate_nib_plain,
+             "config 2 under nib", plane=True)
     mms = {"sparse": mm,
            "sparse groups": RabinKarpMultiMatcher(c2_pats, groups_cfg, device=dev),
            "nib": RabinKarpMultiMatcher(c2_pats, c2_nib, device=dev)}
@@ -1427,7 +1450,7 @@ def main() -> int:
         for e, mt in mms.items():
             passes[e] += host_ms(lambda: mt.run(big_dev, nb), iters=3, passes=1)
     for e, mt in mms.items():
-        dev_ms, per_run = device_profile(lambda: mt.run(big_dev, nb), runs=3)
+        dev_ms, per_run, _ = device_profile(lambda: mt.run(big_dev, nb), runs=3)
         med = statistics.median(passes[e])
         print(f"(e) config 2 RabinKarpMultiMatcher.run device-resident 1 GB k=8 m=16 "
               f"emission={e}: passes {[round(x, 4) for x in passes[e]]} ms, median "
@@ -1445,7 +1468,7 @@ def main() -> int:
     # bm_variant='cursor' on the device-resident 256 MiB text.
     bmc = BoyerMooreMatcher(pat, cursor_cfg, device=dev)
     run_ms = host_ms(lambda: bmc.run(padded, n), iters=1, passes=3)
-    dev_ms, per_run = device_profile(lambda: bmc.run(padded, n), runs=1)
+    dev_ms, per_run, _ = device_profile(lambda: bmc.run(padded, n), runs=1)
     print(f"(e) match device-resident 256 MiB english m=16 bm_variant=cursor: passes "
           f"{[round(x, 4) for x in run_ms]} ms; profiler: device {dev_ms:.4f} ms/run, "
           f"{per_run:.0f} device events/run, idle share "
@@ -1454,7 +1477,7 @@ def main() -> int:
     # A K11d call is a memset and a kernel of a few microseconds each, so
     # its event time above is the host's launch path: the device's share.
     for c, g8 in gv_ids.items():
-        dev_ms, per_run = device_profile(functools.partial(
+        dev_ms, per_run, _ = device_profile(functools.partial(
             swar.gather_verify, region, g8, limit, P, M), runs=20)
         print(f"(e) gather_verify m=16 cap_g={c}: device {dev_ms:.4f} ms per call in "
               f"{per_run:.0f} device events (memset, kernel) {card}")
@@ -1479,7 +1502,7 @@ def main() -> int:
         for k, f in paths.items():
             passes[k] += host_ms(f, iters=10, passes=1)
     for k, f in paths.items():
-        dev_ms, per_run = device_profile(f, runs=5)
+        dev_ms, per_run, _ = device_profile(f, runs=5)
         med = statistics.median(passes[k])
         print(f"(e) {k} device-resident 256 MiB english m=16: passes "
               f"{[round(x, 4) for x in passes[k]]} ms, median {med:.4f} ms; profiler: "

@@ -3,8 +3,9 @@
 
     python3 kernel_ab.py OTHER_CHECKOUT [OTHER_CHECKOUT ...]
 
-Times K5 ``rk_candidate_bsums`` and K10b ``rk_candidate_nib``, and the
-paths that run them, in each OTHER_CHECKOUT (a tree holding the port, for
+Times the Rabin-Karp screens K5 ``rk_candidate_bsums``, K10b
+``rk_candidate_nib``, K6 ``rk_candidate_pmask`` and K10c
+``rk_candidate_bmask``, and the paths that run them, in each OTHER_CHECKOUT (a tree holding the port, for
 example a parent commit unpacked with ``git archive``) against this
 checkout, in turns X, this, this, X within one process.  Each checkout's
 port is loaded under its own module name (the port imports itself only
@@ -13,13 +14,15 @@ same inputs: 256 MiB of ``gen_english`` seed 42 with the bench pattern
 ``"quick brown fox "``, a 509-byte slice of it and BASELINE config 2's
 eight patterns (``chip_smoke.py`` (e)'s cases), and config 2's 1 GB text.
 
-Before timing, every case's output in X must equal this checkout's bit for
-bit.  Per turn: each kernel's device time per launch from torch.profiler
-and its CUDA event time (``chip_smoke.kernel_device_ms``, ``cuda_ms``);
-``RabinKarpMatcher.run`` under sparse and 'nib' emission on the
-device-resident 256 MiB text and config 2's ``RabinKarpMultiMatcher.run``
-under 'nib' on the device-resident 1 GB text (host-clock passes ending in
-a synchronize, device time and events per run from torch.profiler, idle
+Before timing, every case's output in X, kernels and paths, must equal
+this checkout's bit for bit.  Per turn: each kernel's device time per
+launch from torch.profiler and its CUDA event time
+(``chip_smoke.kernel_device_ms``, ``cuda_ms``); ``RabinKarpMatcher.run``
+under sparse and 'nib' emission on the device-resident 256 MiB text and
+config 2's ``RabinKarpMultiMatcher.run`` under sparse 'pselect' (K6),
+'groups' (K10c) and 'nib' (K10b) on the device-resident 1 GB text
+(host-clock passes ending in a synchronize, device time and events per
+run from torch.profiler and its split by event name in the JSON, idle
 share of the median pass).  Prints the card's name and power limit, one
 line per measurement, and a JSON summary as the last line; exits 2 without
 CUDA.
@@ -119,21 +122,54 @@ def main() -> int:
         "K10b m=509": ("rk_candidate_nib", region, n - 509, t509, 509),
         "K10b k=8 m=16": ("rk_candidate_nib", region, n - 16, t8, 16),
         "K10b 1 GB k=8 m=16": ("rk_candidate_nib", big_region, nb - 16, tbig, 16),
+        "K6 k=8 m=16": ("rk_candidate_pmask", region, n - 16, t8, 16),
+        "K6 1 GB k=8 m=16": ("rk_candidate_pmask", big_region, nb - 16, tbig, 16),
+        "K10c k=8 m=16": ("rk_candidate_bmask", region, n - 16, t8, 16),
+        "K10c 1 GB k=8 m=16": ("rk_candidate_bmask", big_region, nb - 16, tbig, 16),
     }
 
     def call(port, case):
         fn, words, lim, t, m = cases[case]
         return getattr(port.rk, fn)(words, lim, t, m, base)
 
+    def paths_of(port) -> dict:
+        """name: (matcher, padded text, length, iterations, profiled runs)."""
+        cfg = port.config.MatchConfig()
+        c2 = cfg.replace(capacity=524288, verify_capacity=524288)
+        multi = port.multi.RabinKarpMultiMatcher
+        return {
+            "Rabin-Karp sparse run": (port.algos.RabinKarpMatcher(
+                pat, cfg, device=dev), padded, n, 10, 10),
+            "Rabin-Karp nib run": (port.algos.RabinKarpMatcher(
+                pat, cfg.replace(emission="nib"), device=dev), padded, n, 10, 10),
+            "config 2 pselect run": (multi(c2_pats, c2, device=dev), big_dev, nb, 3, 3),
+            "config 2 groups run": (multi(c2_pats, c2.replace(multi_gather="groups"),
+                                          device=dev), big_dev, nb, 3, 3),
+            "config 2 nib run": (multi(c2_pats, c2.replace(emission="nib"), device=dev),
+                                 big_dev, nb, 3, 3),
+        }
+
+    paths = {port.name: paths_of(port) for port in (this, *others)}
+
+    def same(a, b) -> bool:
+        """Tensors, numbers and nested sequences of them equal bit for bit."""
+        if isinstance(a, (tuple, list)):
+            return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+        if isinstance(a, torch.Tensor):
+            return torch.equal(a, b)
+        return a == b
+
     for o in others:
         for case in cases:
             a, b = call(o, case), call(this, case)
-            a = a if isinstance(a, tuple) else (a,)
-            b = b if isinstance(b, tuple) else (b,)
-            assert all(torch.equal(x, y) for x, y in zip(a, b)), f"{o.name} {case}"
+            assert same(a, b), f"{o.name} {case}"
             del a, b
             torch.cuda.empty_cache()
-        print(f"{roots[o.name]}: every case equals {roots[this.name]} bit for bit")
+        for path, (mt, t, length, *_rest) in paths[o.name].items():
+            mine = paths[this.name][path][0]
+            assert same(mt.run(t, length), mine.run(t, length)), f"{o.name} {path}"
+            torch.cuda.empty_cache()
+        print(f"{roots[o.name]}: every case and path equals {roots[this.name]} bit for bit")
 
     def turn(port) -> dict:
         out = {}
@@ -143,22 +179,12 @@ def main() -> int:
             d, seen = cs.kernel_device_ms(f, 20, "rk_", getattr(port.rk, fn))
             out[case] = {"device_ms": d, "event_ms": ev, "recorded": seen}
             torch.cuda.empty_cache()
-        cfg = port.config.MatchConfig()
-        c2 = cfg.replace(capacity=524288, verify_capacity=524288, emission="nib")
-        paths = {
-            "Rabin-Karp sparse run": (port.algos.RabinKarpMatcher(
-                pat, cfg, device=dev), padded, n, 10, 5),
-            "Rabin-Karp nib run": (port.algos.RabinKarpMatcher(
-                pat, cfg.replace(emission="nib"), device=dev), padded, n, 10, 5),
-            "config 2 nib run": (port.multi.RabinKarpMultiMatcher(
-                c2_pats, c2, device=dev), big_dev, nb, 3, 3),
-        }
-        for path, (mt, t, length, iters, runs) in paths.items():
+        for path, (mt, t, length, iters, runs) in paths[port.name].items():
             f = lambda: mt.run(t, length)  # noqa: E731
             wall = statistics.median(cs.host_ms(f, iters=iters, passes=3))
-            d, events = cs.device_profile(f, runs=runs)
+            d, events, split = cs.device_profile(f, runs=runs)
             out[path] = {"wall_ms": wall, "device_ms": d, "events": events,
-                         "idle": 1 - d / wall}
+                         "idle": 1 - d / wall, "split": split}
             torch.cuda.empty_cache()
         return out
 
@@ -169,7 +195,8 @@ def main() -> int:
             results.setdefault(port.name, []).append(r)
             for what, v in r.items():
                 print(f"{roots[port.name]} {what}: "
-                      + ", ".join(f"{k} {x:.4f}" for k, x in v.items()) + f" [{smi}]")
+                      + ", ".join(f"{k} {x:.4f}" for k, x in v.items() if k != "split")
+                      + f" [{smi}]")
     print(smi)
     print(json.dumps({"card": smi, "roots": roots, "turns": results}))
     return 0

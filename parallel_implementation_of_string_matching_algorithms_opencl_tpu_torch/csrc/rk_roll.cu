@@ -14,11 +14,9 @@
 // ops/reconstruct.extract_region verifies and recounts them.  Bytes past the
 // end of the region read as 0, as in the plain versions.
 //
-// Two designs share this file.
-//
-// K5 and K10b: a warp per 512-byte block on prefix hashes (rk_warp_kernel).
-// With the Horner prefix P(i) = sum_{j<i} x[j] * B^(i-1-j), started from 0
-// anywhere at or before s,
+// One design serves all four: a warp per 512-byte block on prefix hashes
+// (rk_warp_kernel).  With the Horner prefix P(i) = sum_{j<i} x[j] *
+// B^(i-1-j), started from 0 anywhere at or before s,
 //
 //     H(s) = P(s + m) - B^m * P(s)                              (uint32)
 //
@@ -43,57 +41,47 @@
 // every read is a chunk at a fixed offset.  Each H is compared with the
 // targets four at a time from registers, setting its hit bit, and with the
 // k mod 4 others into one predicate per lane; only in the rare warp where
-// that holds do the lanes build those targets' bits.  Lane
-// l's bits are the nibble words 4l..4l+3 (bit s & 3 of word s >> 2): K10b
-// stores them as one 16-byte write per lane, 512 contiguous bytes per
-// warp.  bs[b] is the warp's sum of the lanes' popcounts, in both.
+// that holds do the lanes build those targets' bits.  Bit t of lane l's
+// `hits` is then start 16l + t, clamped at n_lim, and the emission (a
+// template argument too) is the block's epilogue:
 //
-// Bound on the H100: K5 reads the region once (80 us for 256 MiB at
-// 3.35 TB/s); K10b also writes a nibble plane of the same size (160 us).
-// The bound's operation count (chip_smoke.py) is 2 + k per byte, 0.16 ms
-// at k = 8.  The warp runs about six INT32 instructions per byte besides
-// the compares (the Horner pair, the lane offset, H, and a quarter each of
-// the chunk writes and reads) and one to one and a half per target: K5 at
-// k = 1 runs at about half its bytes bound, held by the instruction rate
-// and by the latency of each block's Horner chain and shuffle scan.  More
-// bytes in flight (two or four blocks ahead in registers, or a cp.async
-// ring of 4-8 blocks) did not make it faster.
+// - K5 (Emit::kCount): bs[b] is the warp's sum of the lanes' popcounts.
+// - K10b (Emit::kNib): lane l's bits are the nibble words 4l..4l+3 (bit
+//   s & 3 of word s >> 2), one 16-byte store per lane, 512 contiguous
+//   bytes per warp; bs[b] as K5's.
+// - K6 (Emit::kPmask, k <= 31, so the sign bit is never used): bit p of
+//   bs[b] is set exactly when some start s <= n_lim in the block hashes to
+//   target p, the tightest per-pattern superset of the block's true
+//   starts.  A lane with hits walks its set bits, recomputes each one's H
+//   from the ring (block b's slot stays until the warp's next __syncwarp)
+//   and ORs bit p for every target p it equals; __reduce_or_sync joins the
+//   lanes.  Only lanes with a hit do any of this, so K6 costs what K5 does
+//   on the blocks without one.  The reference's mask is wider (its
+//   end-word fold reaches a few bytes into the neighbouring blocks, and
+//   each TPU sub-chunk rolls cold over zero front padding); every bit set
+//   here is set there too.
+// - K10c (Emit::kBmask, any k): bit g (0..15) of bs[b] is set exactly when
+//   some start s <= n_lim in the block's bytes [32g, 32g + 32) hashes to
+//   any target, the 32-byte-group occupancy that multi_gather='groups'
+//   verifies.  Lanes 2g and 2g + 1 hold group g's starts: one ballot of
+//   hits != 0, an OR of each pair of bits and four shift-and-mask steps
+//   that compact the even bits into 16.  The reference folds its END
+//   nibbles to starts byte-exactly before the any-per-group, so its mask
+//   is the same function; it is nonzero exactly where K5's count is.
 //
-// K6 and K10c: one thread per 512-byte block (rk_scan_kernel) rolls H one
-// byte at a time,
-//
-//     H <- H * B + in - out * B^m
-//
-// where `in` is the byte entering the window and `out` the byte m places
-// before it, leaving.  The thread starts from H = 0 at the block's first
-// byte with no departing byte for its first m steps (bytes before the block
-// read as 0), so after step i >= m-1 H is the hash of the window starting
-// at block-local j = i - (m-1).  It runs 512 + m - 1 steps.
-//
-// K6 (Emit::kPmask) ORs bit p into the block's mask when a start's hash
-// equals target p (k <= 31, so the sign bit is never used).  Bit p of
-// bs[block] is then exactly "some start s <= n_lim in this block hashes to
-// pattern p", the tightest per-pattern superset of the block's true starts.
-// The reference's mask is wider (its end-word fold reaches a few bytes into
-// the neighbouring blocks, and each TPU sub-chunk rolls cold over zero
-// front padding); every bit set here is set there too.
-//
-// K10c (Emit::kBmask) ORs bit j >> 5 into the block's word for each start j
-// that K5 counts, so bit g (0..15) of bs[block] is set exactly when some
-// start s <= n_lim in the block's bytes [32g, 32g + 32) hashes to any
-// target: the 32-byte-group occupancy that multi_gather='groups' verifies.
-// Any k >= 1.  The reference folds its END nibbles to starts byte-exactly
-// before the any-per-group, so its mask is the same function; it is nonzero
-// exactly where K5's count is.
-//
-// Bound of K6 and K10c on the H100: latency and instruction rate, not HBM
-// (K6 at k = 8 0.2885 ms by operations, K10c 0.1603 ms, 256 MiB).  Each
-// step is a serial
-// multiply-add chain on H plus k compares; the entering bytes come 16 per
-// load, the departing bytes (the same stream m bytes behind, L1/L2 hits) as
-// five 4-byte loads per 16 steps aligned with funnel shifts.  Loads of
-// neighbouring threads are 512 bytes apart, so none is coalesced.  Moving
-// them onto the warp design above is later work.
+// Bound on the H100: K5, K6 and K10c read the region once (80 us for
+// 256 MiB at 3.35 TB/s); K10b also writes a nibble plane of the same size
+// (160 us).  The bound's operation count (chip_smoke.py) is 2 + k per
+// byte, 0.16 ms at k = 8, for all four.  The warp runs about six INT32
+// instructions per byte besides the compares (the Horner pair, the lane
+// offset, H, and a quarter each of the chunk writes and reads) and one to
+// one and a half per target: K5 at k = 1 runs at about half its bytes
+// bound, held by the instruction rate and by the latency of each block's
+// Horner chain and shuffle scan.  More bytes in flight (two or four blocks
+// ahead in registers, or a cp.async ring of 4-8 blocks) did not make it
+// faster.  At k = 8 K6 and K10c take within 4% of K5's time: their
+// epilogues add a few instructions per block, and K6's walk of set bits
+// runs only in the lanes with a hit.
 
 #include <utility>
 
@@ -101,16 +89,16 @@
 
 namespace {
 
-using tpm::byte_of;
 using tpm::kBlockBytes;
 using tpm::load16;
 
 constexpr int kMaxPattern = 509;
+constexpr int kMaxPmaskTargets = 31;
 constexpr unsigned kFull = 0xffffffffu;
 
-// ---------------------------------------------------------------------------
-// K5 and K10b: a warp per block on prefix hashes
-// ---------------------------------------------------------------------------
+// What a block's epilogue emits: K5's count, K10b's count and nibble plane,
+// K6's pattern mask or K10c's group occupancy mask.
+enum class Emit { kCount, kNib, kPmask, kBmask };
 
 constexpr int kWarpThreads = 256;
 constexpr int kWarps = kWarpThreads / 32;
@@ -133,7 +121,7 @@ __device__ __forceinline__ uint32_t byte_at(const uint4& v, int b) {
 
 // kO = m & 15 (the launch picks the instance): the ring row at which a
 // lane's reads of P(s + m) cross is then known at compile time.
-template <bool kNib, int kO>
+template <Emit kEmit, int kO>
 __global__ void __launch_bounds__(kWarpThreads)
 rk_warp_kernel(const uint8_t* __restrict__ text, long long n_bytes,
                long long n_lim, int m, uint32_t B, uint32_t Bm,
@@ -202,9 +190,7 @@ rk_warp_kernel(const uint8_t* __restrict__ text, long long n_bytes,
   // row q0 + 1 after, read as the 16-byte chunks that hold those columns.
   // The targets are compared four at a time from registers, then one at a
   // time.
-  auto hash_hits = [&](long long b) -> uint32_t {
-    const int own = (int)(b & 1) * 32 + lane;
-    const int q0 = (own + (m >> 4)) & 63;
+  auto hash_hits = [&](int own, int q0, long long b) -> uint32_t {
     const uint4* row = reinterpret_cast<const uint4*>(ring + own * kRowWords);
     const uint4* row0 = reinterpret_cast<const uint4*>(ring + q0 * kRowWords);
     const uint4* row1 = reinterpret_cast<const uint4*>(ring + ((q0 + 1) & 63) * kRowWords);
@@ -258,12 +244,36 @@ rk_warp_kernel(const uint8_t* __restrict__ text, long long n_bytes,
     return hits;
   };
 
-  auto emit = [&](long long b, uint32_t hits) {
-    if (kNib)
-      reinterpret_cast<uint4*>(nib)[b * 32 + lane] =
-          make_uint4(hits & 0xFu, (hits >> 4) & 0xFu, (hits >> 8) & 0xFu, hits >> 12);
-    const int count = (int)__reduce_add_sync(kFull, (unsigned)__popc(hits));
-    if (lane == 0) bs[b] = count;
+  // Block b's output from the lanes' hit bits; K6 recomputes the H of
+  // each set bit from the ring (column (kO + t) mod 16 of row q0 or q0 + 1,
+  // as hash_hits reads it).
+  auto emit = [&](int own, int q0, long long b, uint32_t hits) {
+    uint32_t out;
+    if (kEmit == Emit::kPmask) {
+      out = 0u;
+      for (uint32_t h = hits; h != 0u; h &= h - 1u) {
+        const int t = __ffs(h) - 1;
+        const int col = kO + t;
+        const int far = (col < 16 ? q0 : (q0 + 1) & 63) * kRowWords + (col & 15);
+        const uint32_t H = ring[far] + nBm * ring[own * kRowWords + t];
+        for (int p = 0; p < k; ++p) out |= (uint32_t)(H == tgt[p]) << p;
+      }
+      out = __reduce_or_sync(kFull, out);
+    } else if (kEmit == Emit::kBmask) {
+      // Lanes 2g and 2g + 1 hold group g: OR the pairs, keep the even bits.
+      out = __ballot_sync(kFull, hits != 0u);
+      out = (out | out >> 1) & 0x55555555u;
+      out = (out | out >> 1) & 0x33333333u;
+      out = (out | out >> 2) & 0x0F0F0F0Fu;
+      out = (out | out >> 4) & 0x00FF00FFu;
+      out = (out | out >> 8) & 0x0000FFFFu;
+    } else {
+      if (kEmit == Emit::kNib)
+        reinterpret_cast<uint4*>(nib)[b * 32 + lane] =
+            make_uint4(hits & 0xFu, (hits >> 4) & 0xFu, (hits >> 8) & 0xFu, hits >> 12);
+      out = __reduce_add_sync(kFull, (unsigned)__popc(hits));
+    }
+    if (lane == 0) bs[b] = (int)out;
   };
 
   // Block b's starts: block b + 1's prefixes go to the ring's other slot,
@@ -276,29 +286,32 @@ rk_warp_kernel(const uint8_t* __restrict__ text, long long n_bytes,
     if (b + 2 <= b_end) ahead = load16(text, (b + 2) * kBlockBytes + 16 * lane, n_bytes);
     prefixes(v, (int)((b + 1) & 1));
     __syncwarp();
-    emit(b, hash_hits(b));
+    const int own = (int)(b & 1) * 32 + lane;
+    const int q0 = (own + (m >> 4)) & 63;
+    emit(own, q0, b, hash_hits(own, q0, b));
     __syncwarp();  // block b's slot is block b + 2's next
   }
 }
 
-// The 16 instances of rk_warp_kernel<kNib, kO>, by kO.
-template <bool kNib, int... kO>
+// The 16 instances of rk_warp_kernel<kEmit, kO>, by kO.
+template <Emit kEmit, int... kO>
 const void* const* warp_kernels(std::integer_sequence<int, kO...>) {
-  static const void* const table[] = {(const void*)rk_warp_kernel<kNib, kO>...};
+  static const void* const table[] = {(const void*)rk_warp_kernel<kEmit, kO>...};
   return table;
 }
 
-template <bool kNib>
+template <Emit kEmit>
 int launch_warp(const void* text, long long n_bytes, long long n_lim, int m,
                 unsigned int B, unsigned int Bm, const void* targets, int k,
                 void* nib, void* bs, void* stream) {
   if (n_bytes % kBlockBytes != 0 || m < 1 || m > kMaxPattern || k < 1 ||
-      (B & 1u) == 0u || reinterpret_cast<uintptr_t>(text) % 16 != 0 ||
-      (kNib && reinterpret_cast<uintptr_t>(nib) % 16 != 0))
+      (kEmit == Emit::kPmask && k > kMaxPmaskTargets) || (B & 1u) == 0u ||
+      reinterpret_cast<uintptr_t>(text) % 16 != 0 ||
+      (kEmit == Emit::kNib && reinterpret_cast<uintptr_t>(nib) % 16 != 0))
     return (int)cudaErrorInvalidValue;
   const long long n_blocks = n_bytes / kBlockBytes;
   if (n_blocks == 0) return 0;
-  const void* kernel = warp_kernels<kNib>(std::make_integer_sequence<int, 16>())[m & 15];
+  const void* kernel = warp_kernels<kEmit>(std::make_integer_sequence<int, 16>())[m & 15];
   const size_t smem = kRingSmem + (size_t)k * sizeof(uint32_t);
   if (smem > 48 * 1024)
     if (cudaError_t err = cudaFuncSetAttribute(
@@ -322,91 +335,6 @@ int launch_warp(const void* text, long long n_bytes, long long n_lim, int m,
   return (int)cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// K6 and K10c: a thread per block rolling H
-// ---------------------------------------------------------------------------
-
-constexpr int kThreads = 128;
-
-// What a block's scan emits: K6's pattern mask or K10c's group occupancy
-// mask.
-enum class Emit { kPmask, kBmask };
-
-template <Emit kEmit>
-__global__ void __launch_bounds__(kThreads)
-rk_scan_kernel(const uint8_t* __restrict__ text, long long n_bytes,
-               long long n_lim, int m, uint32_t B, uint32_t Bm,
-               const uint32_t* __restrict__ targets, int k,
-               int* __restrict__ bs) {
-  extern __shared__ uint32_t tgt[];  // the k target hashes
-  for (int t = threadIdx.x; t < k; t += kThreads) tgt[t] = targets[t];
-  __syncthreads();
-
-  const long long blk = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (blk >= n_bytes / kBlockBytes) return;
-  const long long base = blk * kBlockBytes;
-  const long long room = n_lim - base + 1;
-  const int lim = room < 0 ? 0 : (room > kBlockBytes ? kBlockBytes : (int)room);
-  const int steps = kBlockBytes + m - 1;
-  const uint32_t* words = reinterpret_cast<const uint32_t*>(text);
-  const long long n_words = n_bytes / 4;
-  // Departing bytes of the group at q start at block-local byte q - m:
-  // word offset wrel = floor((q - m) / 4), then a shift of sh bytes, the
-  // same for every group since q is a multiple of 16 (m <= 509 < 512).
-  const int sh = (-m) & 3;
-
-  uint32_t H = 0u;
-  uint32_t out = 0u;  // K6: pattern-hit mask; K10c: group occupancy mask
-  for (int q = 0; q < steps; q += 16) {
-    const uint4 v = load16(text, base + q, n_bytes);
-    const int wrel = (q - m + kBlockBytes) / 4 - kBlockBytes / 4;
-    uint32_t w[5];
-#pragma unroll
-    for (int t = 0; t < 5; ++t) {
-      const long long wi = base / 4 + wrel + t;
-      // Words before the block are "no departing byte yet": 0.
-      w[t] = (wrel + t >= 0 && wi < n_words) ? __ldg(words + wi) : 0u;
-    }
-    const uint4 o = make_uint4(__funnelshift_r(w[0], w[1], 8 * sh),
-                               __funnelshift_r(w[1], w[2], 8 * sh),
-                               __funnelshift_r(w[2], w[3], 8 * sh),
-                               __funnelshift_r(w[3], w[4], 8 * sh));
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      H = H * B + byte_of(v, i) - byte_of(o, i) * Bm;
-      const int j = q + i - (m - 1);
-      if (kEmit == Emit::kPmask) {
-        if (j >= 0 && j < lim)
-          for (int p = 0; p < k; ++p) out |= (uint32_t)(H == tgt[p]) << p;
-      } else {
-        bool hit = false;
-        if (j >= 0 && j < lim)
-          for (int p = 0; p < k; ++p) hit |= H == tgt[p];
-        if (hit) out |= 1u << (j >> 5);  // a hit has 0 <= j < lim <= 512
-      }
-    }
-  }
-  bs[blk] = (int)out;
-}
-
-template <Emit kEmit>
-int launch_scan(const void* text, long long n_bytes, long long n_lim, int m,
-                unsigned int B, unsigned int Bm, const void* targets, int k,
-                void* bs, void* stream) {
-  if (n_bytes % kBlockBytes != 0 || m < 1 || m > kMaxPattern || k < 1 ||
-      (kEmit == Emit::kPmask && k > 31) || (B & 1u) == 0u ||
-      reinterpret_cast<uintptr_t>(text) % 16 != 0)
-    return (int)cudaErrorInvalidValue;
-  const long long n_blocks = n_bytes / kBlockBytes;
-  if (n_blocks == 0) return 0;
-  const unsigned grid = (unsigned)((n_blocks + kThreads - 1) / kThreads);
-  rk_scan_kernel<kEmit><<<grid, kThreads, (size_t)k * sizeof(uint32_t),
-                          (cudaStream_t)stream>>>(
-      (const uint8_t*)text, n_bytes, n_lim, m, B, Bm,
-      (const uint32_t*)targets, k, (int*)bs);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -418,8 +346,8 @@ int tpm_rk_candidate_bsums(const void* text, long long n_bytes,
                            long long n_lim, int m, unsigned int B,
                            unsigned int Bm, const void* targets, int k,
                            void* bs, void* stream) {
-  return launch_warp<false>(text, n_bytes, n_lim, m, B, Bm, targets, k,
-                            nullptr, bs, stream);
+  return launch_warp<Emit::kCount>(text, n_bytes, n_lim, m, B, Bm, targets, k,
+                                   nullptr, bs, stream);
 }
 
 // The same arguments; k must be in 1..31.  bs[b] gets the k-bit mask.
@@ -427,8 +355,8 @@ int tpm_rk_candidate_pmask(const void* text, long long n_bytes,
                            long long n_lim, int m, unsigned int B,
                            unsigned int Bm, const void* targets, int k,
                            void* bs, void* stream) {
-  return launch_scan<Emit::kPmask>(text, n_bytes, n_lim, m, B, Bm, targets, k,
-                                   bs, stream);
+  return launch_warp<Emit::kPmask>(text, n_bytes, n_lim, m, B, Bm, targets, k,
+                                   nullptr, bs, stream);
 }
 
 // The same arguments as tpm_rk_candidate_bsums; any k >= 1.  bs[b] gets the
@@ -437,8 +365,8 @@ int tpm_rk_candidate_bmask(const void* text, long long n_bytes,
                            long long n_lim, int m, unsigned int B,
                            unsigned int Bm, const void* targets, int k,
                            void* bs, void* stream) {
-  return launch_scan<Emit::kBmask>(text, n_bytes, n_lim, m, B, Bm, targets, k,
-                                   bs, stream);
+  return launch_warp<Emit::kBmask>(text, n_bytes, n_lim, m, B, Bm, targets, k,
+                                   nullptr, bs, stream);
 }
 
 // The same arguments as tpm_rk_candidate_bsums, plus nib: n_bytes / 4 ints,
@@ -447,8 +375,8 @@ int tpm_rk_candidate_nib(const void* text, long long n_bytes, long long n_lim,
                          int m, unsigned int B, unsigned int Bm,
                          const void* targets, int k, void* nib, void* bs,
                          void* stream) {
-  return launch_warp<true>(text, n_bytes, n_lim, m, B, Bm, targets, k, nib, bs,
-                           stream);
+  return launch_warp<Emit::kNib>(text, n_bytes, n_lim, m, B, Bm, targets, k, nib,
+                                 bs, stream);
 }
 
 }  // extern "C"

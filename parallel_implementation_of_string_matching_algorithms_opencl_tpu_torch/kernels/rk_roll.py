@@ -2,18 +2,18 @@
 ``kernels/rk_roll.py``).
 
 The window hash ``H = sum_j x[s+j] * B^(m-1-j) mod 2**32``
-(``ops/tables.rk_hash``) rolls one byte at a time,
-``H <- H*B + in - out*B^m``, and windows whose hash equals a target are
+(``ops/tables.rk_hash``), and windows whose hash equals a target are
 candidate starts; the caller verifies them.
 
-Four kernels (``csrc/rk_roll.cu``): K5 ``rk_candidate_bsums`` counts
-candidate starts per 512-byte block and K10b ``rk_candidate_nib`` writes
-K5's counts and the candidate nibble plane (``emission='nib'``), both a
-warp per block on prefix hashes; K6 ``rk_candidate_pmask`` sets, per
-block, bit p when a start hashes to pattern p (the multi-pattern screen,
-k <= 31) and K10c ``rk_candidate_bmask`` sets, per block, bit g when a
-start in its 32-byte group g hashes to any target
-(``multi_gather='groups'``), both one rolling thread per block.  Each has a plain PyTorch version in
+Four kernels, one design (``csrc/rk_roll.cu`` ``rk_warp_kernel``: a warp
+per 512-byte block on prefix hashes, ``H = P(s+m) - B^m * P(s)``), which
+differ only in what a block emits: K5 ``rk_candidate_bsums`` counts
+candidate starts per block; K10b ``rk_candidate_nib`` writes K5's counts
+and the candidate nibble plane (``emission='nib'``); K6
+``rk_candidate_pmask`` sets, per block, bit p when a start hashes to
+pattern p (the multi-pattern screen, k <= 31); K10c ``rk_candidate_bmask``
+sets, per block, bit g when a start in its 32-byte group g hashes to any
+target (``multi_gather='groups'``).  Each has a plain PyTorch version in
 this module and a launch counter (``.launches``).  A wrapper runs the plain version for a CPU
 tensor and launches the kernel for a CUDA tensor; there is no other route.
 The region geometry is the Shift-AND kernel's

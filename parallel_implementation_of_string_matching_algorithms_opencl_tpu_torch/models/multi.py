@@ -1,8 +1,10 @@
 """Multi-pattern Rabin-Karp (counterpart of the JAX ``models/multi.py``;
 BASELINE config 2: 8 patterns over a 1 GB corpus).
 
-k patterns of one length share one rolling-hash pass over the kernel region
-[0, Nk), then each pattern is extracted exactly on its own:
+k patterns of one length share one hash pass over the kernel region
+[0, Nk) (``csrc/rk_roll.cu`` ``rk_warp_kernel``, a warp per 512-byte block
+on prefix hashes, whichever of K5, K6, K10b or K10c the route takes), then
+each pattern is extracted exactly on its own:
 
 - ``multi_gather='pselect'`` (default, k <= 31): K6
   ``rk_roll.rk_candidate_pmask`` marks, per 512-byte block, which patterns'

@@ -185,7 +185,8 @@ def test_tiled_scans_bit_exact_on_ragged_regions(length, pat, where, cuda_device
 
 
 RK_SCANS = [(2, 1, None), (2, 8, None), (16, 1, None), (16, 8, None),
-            (509, 1, None), (509, 8, None), (16, 8, 0x9E3779B1)]
+            (509, 1, None), (509, 8, None), (16, 8, 0x9E3779B1), (16, 31, None),
+            (509, 31, None), (16, 40, None)]
 
 
 @pytest.mark.parametrize("where", ["end", "lead16"])
@@ -193,16 +194,16 @@ RK_SCANS = [(2, 1, None), (2, 8, None), (16, 1, None), (16, 8, None),
                          ids=[f"m{m}-k{k}{'-odd' if b else ''}" for m, k, b in RK_SCANS])
 @pytest.mark.parametrize("length", [1, 31, 32, 33, 97, "span+1"])
 def test_rk_scans_bit_exact_on_ragged_regions(length, m, k, base, where, cuda_device):
-    """K5 and K10b (a warp per block over a persistent grid) equal their
-    plain versions bit for bit (tolerance 0) on regions of 1, 31, 32, 33
-    and 97 blocks and of one tile more than a whole number of grid spans
-    (as in test_tiled_scans_bit_exact_on_ragged_regions), with n_lim
-    mid-way into the last block and at its last byte, k targets (the first
-    planted in the region) and the default or another odd base; each
-    launch counts once.  K6 and K10c, whose kernel is the rolling thread
-    per block, run beside them as a control.  'lead16' places the region
-    16 bytes into a buffer of -1 words (the RK wrappers refuse a start off
-    its 16-byte line)."""
+    """K5, K10b, K6 and K10c (one warp-per-block kernel over a persistent
+    grid, four epilogues) equal their plain versions bit for bit (tolerance
+    0) on regions of 1, 31, 32, 33 and 97 blocks and of one tile more than
+    a whole number of grid spans (as in
+    test_tiled_scans_bit_exact_on_ragged_regions), with n_lim mid-way into
+    the last block and at its last byte, k targets (the first planted in
+    the region; k = 31 fills K6's mask, k = 40 is past it and runs the
+    other three) and the default or another odd base; each launch counts
+    once.  'lead16' places the region 16 bytes into a buffer of -1 words
+    (the RK wrappers refuse a start off its 16-byte line)."""
     pat = (bytes(range(1, 256)) + bytes(range(1, 255)))[:m] if m == 509 else (
         b"quick brown fox "[:m])
     base = int(tables.RK_BASE) if base is None else base
@@ -222,19 +223,23 @@ def test_rk_scans_bit_exact_on_ragged_regions(length, m, k, base, where, cuda_de
             what = f"{blocks} blocks, n_lim {n_lim}"
             counts = (rk_roll.rk_candidate_bsums.launches, rk_roll.rk_candidate_nib.launches,
                       rk_roll.rk_candidate_pmask.launches, rk_roll.rk_candidate_bmask.launches)
+            with_pm = k <= rk_roll.MAX_PMASK_PATTERNS
             bs = rk_roll.rk_candidate_bsums(words, n_lim, tgt, m, base)
             nib, bs10 = rk_roll.rk_candidate_nib(words, n_lim, tgt, m, base)
-            pm = rk_roll.rk_candidate_pmask(words, n_lim, tgt, m, base)
+            if with_pm:
+                pm = rk_roll.rk_candidate_pmask(words, n_lim, tgt, m, base)
             bm = rk_roll.rk_candidate_bmask(words, n_lim, tgt, m, base)
             torch.cuda.synchronize()
             assert (rk_roll.rk_candidate_bsums.launches, rk_roll.rk_candidate_nib.launches,
                     rk_roll.rk_candidate_pmask.launches,
-                    rk_roll.rk_candidate_bmask.launches) == tuple(x + 1 for x in counts)
+                    rk_roll.rk_candidate_bmask.launches) == (
+                        counts[0] + 1, counts[1] + 1, counts[2] + with_pm, counts[3] + 1)
             nib_p, bs_p = rk_roll.rk_candidate_nib_plain(words, n_lim, tgt, m, base)
             assert torch.equal(bs, bs_p), f"K5, {what}"
             assert torch.equal(nib, nib_p) and torch.equal(bs10, bs_p), f"K10b, {what}"
-            assert torch.equal(pm, rk_roll.rk_candidate_pmask_plain(
-                words, n_lim, tgt, m, base)), f"K6, {what}"
+            if with_pm:
+                assert torch.equal(pm, rk_roll.rk_candidate_pmask_plain(
+                    words, n_lim, tgt, m, base)), f"K6, {what}"
             assert torch.equal(bm, rk_roll.rk_candidate_bmask_plain(
                 words, n_lim, tgt, m, base)), f"K10c, {what}"
             assert int(bs_p.sum()) > 0

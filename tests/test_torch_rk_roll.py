@@ -1,7 +1,9 @@
 """PyTorch port: the arithmetic of the Rabin-Karp warp scan (K5
-``rk_roll.rk_candidate_bsums`` and K10b ``rk_candidate_nib`` in
-``csrc/rk_roll.cu``), stated in numpy, and the plain K5/K10b at ragged
-region lengths.  Tolerance: exact integer equality.
+``rk_roll.rk_candidate_bsums``, K10b ``rk_candidate_nib``, K6
+``rk_candidate_pmask`` and K10c ``rk_candidate_bmask``, all
+``rk_warp_kernel`` in ``csrc/rk_roll.cu``), stated in numpy, and the plain
+K5/K10b/K6/K10c at ragged region lengths.  Tolerance: exact integer
+equality.
 
 ``warp_scan`` follows the CUDA kernel step for step: lane l's Horner over
 bytes [16l, 16l + 16) of a 512-byte block, the five-step affine combine of
@@ -9,10 +11,14 @@ the 32 lanes (``__shfl_up_sync``), the carry from block to block over a
 warp's span, the two-block ring of prefixes (64 rows of 16, padded to 20
 words), the reads of P(s + m) split at the ring row that ``m & 15`` fixes,
 and
-``H = P(s + m) - B^m * P(s)`` in uint32.  Its hashes must equal the port's
-``ops/rabin_karp.rk_window_hashes`` and the JAX package's
-``ops/tables.rk_hash`` for every start, and its hit bits, packed as the
-kernel stores them, the plain K10b.  The kernel itself is held against the
+``H = P(s + m) - B^m * P(s)`` in uint32, the hit bits clamped at n_lim,
+and the block epilogues: K6's per-pattern OR over each lane's set bits
+with H recomputed from the ring, joined over the lanes, and K10c's ballot
+of the lanes with a hit, its pairs ORed and its even bits compacted into
+16.  Its hashes must equal the port's ``ops/rabin_karp.rk_window_hashes``
+and the JAX package's ``ops/tables.rk_hash`` for every start, its hit
+bits, packed as the kernel stores them, the plain K10b, and its K6 and
+K10c masks the plain K6 and K10c.  The kernel itself is held against the
 plain versions on the card (tests/test_torch_cuda.py, chip_smoke.py).
 """
 
@@ -56,10 +62,12 @@ def _shfl_up(x: np.ndarray, d: int) -> np.ndarray:
 
 
 def warp_scan(region: np.ndarray, b0: int, span: int, m: int, base: int,
-              targets=()):
+              targets=(), n_lim: int | None = None):
     """The kernel's walk of one warp over blocks [b0, b0 + span) of
     ``region`` (uint8, whole blocks; bytes past it read 0): (H uint32[span,
-    512], the lanes' hit bits uint32[span, 32]) for ``targets``."""
+    512], the lanes' hit bits uint32[span, 32] for ``targets``, clamped at
+    ``n_lim`` when it is given, K6's masks int[span] and K10c's
+    int[span])."""
     B = base & 0xFFFFFFFF
     Bm = pow(B, m, 1 << 32)
     n_blocks = region.size // BLOCK
@@ -97,23 +105,52 @@ def warp_scan(region: np.ndarray, b0: int, span: int, m: int, base: int,
         ring[rows[:, None] + np.arange(16)] = P
 
     o = m & 15
+
+    def ring_hash(own, q0, t):
+        """H of start 16l + t from the ring (the reads of hash_hits)."""
+        col = o + t
+        row = q0 if col < 16 else (q0 + 1) & 63
+        far = ring[row * ROW_WORDS + (col & 15)]
+        return _u32((far.astype(np.uint64) - _mul(ring[own * ROW_WORDS + t], Bm))
+                    & 0xFFFFFFFF)
+
     H = np.zeros((span, BLOCK), np.uint32)
     hits = np.zeros((span, LANES), np.uint32)
+    pmask = np.zeros(span, np.int64)
+    bmask = np.zeros(span, np.int64)
     prefixes(b0)
     for i, b in enumerate(range(b0, b0 + span)):
         prefixes(b + 1)
         own = (b & 1) * 32 + lane
         q0 = (own + (m >> 4)) & 63
         for t in range(16):
-            near = ring[own * ROW_WORDS + t]
-            col = o + t
-            row = q0 if col < 16 else (q0 + 1) & 63
-            far = ring[row * ROW_WORDS + (col & 15)]
-            h = _u32((far.astype(np.uint64) - _mul(near, Bm)) & 0xFFFFFFFF)
+            h = ring_hash(own, q0, t)
             H[i, 16 * lane + t] = h
             for tp in targets:
                 hits[i] |= (h == tp).astype(np.uint32) << t
-    return H, hits
+        if n_lim is not None and (b + 1) * BLOCK > n_lim:  # starts past n_lim
+            room = n_lim - b * BLOCK - 16 * lane + 1
+            hits[i] &= np.where(room >= 16, 0xFFFF, np.where(
+                room <= 0, 0, (1 << np.clip(room, 0, 15)) - 1)).astype(np.uint32)
+        # K10c: the ballot of lanes with a hit, pairs ORed, even bits
+        # compacted.
+        g = sum(1 << int(x) for x in np.flatnonzero(hits[i]))
+        g = (g | g >> 1) & 0x55555555
+        for shift, keep in ((1, 0x33333333), (2, 0x0F0F0F0F), (4, 0x00FF00FF),
+                            (8, 0x0000FFFF)):
+            g = (g | g >> shift) & keep
+        bmask[i] = g
+        # K6: each lane walks its set bits, H again from the ring, and ORs
+        # bit p per target p equal to it; the OR over the lanes.
+        for ln in range(LANES):
+            h = int(hits[i, ln])
+            while h:
+                t = (h & -h).bit_length() - 1
+                ht = ring_hash(own[ln], q0[ln], t)
+                for p, tp in enumerate(targets):
+                    pmask[i] |= int(ht == tp) << p
+                h &= h - 1
+    return H, hits, pmask, bmask
 
 
 def _text(n_blocks: int, seed: int) -> np.ndarray:
@@ -134,7 +171,7 @@ def test_warp_scan_hashes_equal_direct_sums(span, m, base):
     block after the span, so the last windows read zeros past it."""
     b0 = 3
     region = _text(b0 + span + 1, seed=span * 1000 + m)
-    H, _ = warp_scan(region, b0, span, m, base)
+    H, *_ = warp_scan(region, b0, span, m, base)
     starts = np.arange(b0 * BLOCK, (b0 + span) * BLOCK)
     powers = torch.from_numpy(tables.rk_constants(m, base)["powers"].astype(np.int64))
     direct = rk_ops.rk_window_hashes(torch.from_numpy(region), powers).numpy()
@@ -158,11 +195,7 @@ def test_warp_scan_emits_plain_nib(m):
     c = tables.rk_constants(m, base)
     tgt = [np.uint32(tables.rk_hash(np.frombuffer(p, np.uint8), c)) for p in pats]
     n_lim = n_blocks * BLOCK - BLOCK + 137
-    _, hits = warp_scan(region, 0, n_blocks, m, base, tgt)
-    start = (np.arange(n_blocks)[:, None] * BLOCK + 16 * np.arange(LANES))
-    room = n_lim - start + 1
-    keep = np.where(room >= 16, 0xFFFF, np.where(room <= 0, 0, (1 << np.clip(room, 0, 15)) - 1))
-    hits &= keep.astype(np.uint32)
+    _, hits, _, _ = warp_scan(region, 0, n_blocks, m, base, tgt, n_lim)
     nib = np.stack([(hits >> (4 * w)) & 0xF for w in range(4)], -1).reshape(-1)
     bs = np.array([sum(bin(int(h)).count("1") for h in row) for row in hits])
     words = torch.from_numpy(region.view(np.int32).copy())
@@ -171,6 +204,37 @@ def test_warp_scan_emits_plain_nib(m):
     np.testing.assert_array_equal(nib.astype(np.int32), nib_p.numpy())
     np.testing.assert_array_equal(bs, bs_p.numpy())
     assert bs.sum() >= 2
+
+
+@pytest.mark.parametrize("k", [2, 31, 40])
+@pytest.mark.parametrize("m", [2, 16, 509])
+def test_warp_scan_emits_plain_pmask_bmask(m, k):
+    """The warp scan's K6 masks (k <= 31) and K10c masks, with the hit bits
+    clamped at n_lim mid-way into the last block, equal the plain K6's and
+    K10c's bit for bit.  The targets are slices of the warp's span, the
+    first two equal (each gets its bit), so the last (bit 30 at k = 31)
+    hits too; the span starts at an odd block."""
+    n_blocks, b0 = 6, 1
+    region = _text(n_blocks, seed=5 * m + k)
+    step = (region.size - 2 * BLOCK - m) // k
+    pats = [region[BLOCK + 7 + step * i:][:m].tobytes() for i in range(k - 1)]
+    pats = [pats[0]] + pats
+    base = int(tables.RK_BASE)
+    c = tables.rk_constants(m, base)
+    tgt = [np.uint32(tables.rk_hash(np.frombuffer(p, np.uint8), c)) for p in pats]
+    n_lim = n_blocks * BLOCK - BLOCK + 137
+    _, _, pmask, bmask = warp_scan(region, b0, n_blocks - b0, m, base, tgt, n_lim)
+    words = torch.from_numpy(region.view(np.int32).copy())
+    targets = torch.tensor([int(t) for t in tgt], dtype=torch.int64)
+    bm_p = rk_roll.rk_candidate_bmask_plain(words, n_lim, targets, m, base).numpy()
+    np.testing.assert_array_equal(bmask, bm_p[b0:])
+    assert bmask.any()
+    if k <= rk_roll.MAX_PMASK_PATTERNS:
+        pm_p = rk_roll.rk_candidate_pmask_plain(words, n_lim, targets, m, base).numpy()
+        np.testing.assert_array_equal(pmask, pm_p[b0:])
+        np.testing.assert_array_equal(pmask & 1, pmask >> 1 & 1)  # equal targets
+        assert (pmask >> (k - 1) & 1).any() and len(set(pats)) == k - 1
+        np.testing.assert_array_equal(pmask != 0, bmask != 0)
 
 
 RAGGED_PATTERNS = [b"quick brown fox ", b"\xe4\xb8\x80\xc3\xa9 x",
@@ -199,7 +263,9 @@ def test_plain_rk_scans_on_ragged_regions(blocks, pat):
     """At the ragged lengths of the tiled scans, n_lim mid-way into the last
     block and at its last byte: the plain K10b's plane holds every true
     start <= n_lim, its bs is the plane's per-block popcount, and the plain
-    K5 equals that bs."""
+    K5 equals that bs; the plain K6's mask holds every true start's block
+    and the plain K10c's every true start's 32-byte group, each nonzero
+    exactly where K5 is."""
     data = _ragged_region(blocks, pat)
     m = len(pat)
     words = torch.from_numpy(np.frombuffer(data, np.int32).copy())
@@ -216,3 +282,9 @@ def test_plain_rk_scans_on_ragged_regions(blocks, pat):
         assert not bits[n_lim + 1:].any()
         assert torch.equal(bs, bits.view(-1, BLOCK).sum(1, dtype=torch.int32))
         assert torch.equal(rk_roll.rk_candidate_bsums(words, n_lim, targets, m, base), bs)
+        pm = rk_roll.rk_candidate_pmask(words, n_lim, targets, m, base)
+        bm = rk_roll.rk_candidate_bmask(words, n_lim, targets, m, base)
+        for s in want:
+            assert pm[s // BLOCK] == 1, (n_lim, s)
+            assert bm[s // BLOCK] >> (s % BLOCK // rk_roll.GROUP_BYTES) & 1, (n_lim, s)
+        assert torch.equal(pm != 0, bs != 0) and torch.equal(bm != 0, bs != 0)

@@ -12,7 +12,9 @@ source, in parallel), then:
     corpus and on ragged regions (1, 31, 32, 33 and 97 blocks and one tile
     past a whole number of grid spans; each a fresh tensor that ends its
     allocation or starts off its 16-byte line; n_lim in the last block; K1
-    under three probe layouts); K5 ``rk_candidate_bsums``, K10b
+    under three probe layouts; K7/K8 ``screened_nib`` and ``screened_bsums``
+    under the 'table_gs' and the 'table_dyn' probes, also against K2/K3,
+    and K11a ``screen_cand_nibsums`` under both); K5 ``rk_candidate_bsums``, K10b
     ``rk_candidate_nib``, K6 ``rk_candidate_pmask`` and K10c
     ``rk_candidate_bmask`` on the same ragged lengths (m=16 and m=509 with
     one target, m=16 with k=8, 31 and 40, K6 up to k=31; regions that end
@@ -29,7 +31,10 @@ source, in parallel), then:
     Rabin-Karp at m=509;
 (c) drives a match-dense case that must take the K2 rescan, against a
     numpy shifted-compare reference;
-(d) checks that ``drain=True`` returns every offset past ``capacity``;
+(d) checks that ``drain=True`` returns every offset past ``capacity``, and
+    that ``capacity=0`` is count-only for every algorithm (the oracle's
+    count, no offsets, overflow when there is a match; ``drain=True``
+    raises);
 (f) drives ``match`` with pattern lists against the numpy reference:
     BASELINE config 2 at full size (1 GB English, 8 patterns, capacity
     2**19, default ``multi_gather='pselect'`` on K6), then at 256 MiB
@@ -44,7 +49,10 @@ source, in parallel), then:
     pattern, 64 and 256: K = 1, 2, 8) against K2 and, for m <= 32, K4, and
     K10b ``rk_candidate_nib`` (k=1 at the corpus pattern and m=509, k=8)
     and K5 at the same cases against their plain versions, K10b's block
-    sums against K5's, each true start among its candidates;
+    sums against K5's, each true start among its candidates; K11a
+    ``screen_cand_nibsums`` against its plain version under K2's own, K7's
+    and K8's probes, and from its block sums the share of 512-byte blocks
+    (warps of K2/K3 and K7/K8) with a screen hit;
     K9 (``kmp_bsums`` / ``kmp_nib`` with the composed-4 step at m = 5, 16,
     32, 33, 64 and 256, and with the compare-B lookup, per byte and
     composed, at m = 5, 16 and 32) against their plain versions and the
@@ -75,9 +83,9 @@ source, in parallel), then:
     against the oracle, and on the dense 64 MiB text, whose occupied groups
     outnumber cap_g, against the oracle on the listed groups;
 (e) times every kernel and its plain version with CUDA events (K9 beside
-    K4 / K10a at the same m, K10c beside K6; K1-K3, K5, K6, K10b and K10c
-    also by their own device time per call from torch.profiler, their time
-    in the JSON line), ``match``
+    K4 / K10a at the same m, K10c beside K6; K1-K3, K5, K6, K7/K8, K10b,
+    K10c and K11a also by their own device time per call from
+    torch.profiler, their time in the JSON line), ``match``
     per algorithm on a device-resident text (host clock, and device time
     and idle share from torch.profiler), sparse and 'nib' in alternating
     passes, and from host bytes, the KMP dense-DFA tail at m=509, K6,
@@ -502,6 +510,22 @@ def main() -> int:
             hold("screened_bsums", f"{what} {tag}", got,
                  swar.screened_bsums_plain(region, limit, P, M, lay))
             hold("screened_bsums", f"{what} {tag} vs K3", got, bs3)
+        # The warps of K2/K3 and K7/K8 that walk the verify chains: blocks
+        # with a screen hit (K11a's block sums under the same probes, K11a
+        # held against its plain version).
+        shares = []
+        for tag, lay in (("K2 own", swar.probe_indices(swar.mask_words(bm.m))),
+                         ("K7 table_gs", swar.static_probes_from_table(
+                             swar.probe_table(u, use_gs=True))),
+                         ("K8 table_dyn", swar.static_probes_from_table(
+                             swar.probe_table(u)))):
+            bs11, tot = got = swar.screen_cand_nibsums(region, limit, P, M, lay)
+            hold("screen_cand_nibsums", f"{what} {tag}", got,
+                 swar.screen_cand_nibsums_plain(region, limit, P, M, lay))
+            hit = int((bs11 > 0).sum())
+            shares.append(f"{tag} {lay}: {hit} of {bs11.numel()} blocks "
+                          f"({hit / bs11.numel():.4f}), {int(tot)} (word, alignment) hits")
+        lines.append(f"  {name}: screen hits: {'; '.join(shares)}")
         del k2
 
     # K1-K3 walk 16 KiB tiles on a persistent grid: ragged regions of 1,
@@ -519,6 +543,8 @@ def main() -> int:
                    "table_gs": swar.static_probes_from_table(swar.probe_table(u, use_gs=True)),
                    "table_gs1": swar.static_probes_from_table(
                        swar.probe_table(u, use_gs=True, single=True))}
+        screened = {"table_gs": layouts["table_gs"],
+                    "table_dyn": swar.static_probes_from_table(swar.probe_table(u))}
         held = matches = 0
         for blocks in ragged:
             host_words = ragged_words(blocks, pat)
@@ -536,10 +562,26 @@ def main() -> int:
                          (nib_p, bs_p), quiet=True)
                     hold("naive_bsums", what, swar.naive_bsums(words, lim, Pr, Mr), bs_p,
                          quiet=True)
-                    held += 5
+                    for tag in ("table_gs", "table_dyn"):
+                        lay = screened[tag]
+                        got = swar.screened_nib(words, lim, Pr, Mr, lay)
+                        hold("screened_nib", f"{what} {tag}", got,
+                             swar.screened_nib_plain(words, lim, Pr, Mr, lay), quiet=True)
+                        hold("screened_nib", f"{what} {tag} vs K2", got, (nib_p, bs_p),
+                             quiet=True)
+                        got = swar.screened_bsums(words, lim, Pr, Mr, lay)
+                        hold("screened_bsums", f"{what} {tag}", got,
+                             swar.screened_bsums_plain(words, lim, Pr, Mr, lay), quiet=True)
+                        hold("screened_bsums", f"{what} {tag} vs K3", got, bs_p, quiet=True)
+                        hold("screen_cand_nibsums", f"{what} {tag}",
+                             swar.screen_cand_nibsums(words, lim, Pr, Mr, lay),
+                             swar.screen_cand_nibsums_plain(words, lim, Pr, Mr, lay),
+                             quiet=True)
+                    held += 15
                     matches += int(bs_p.sum())
                 del words
-        lines.append(f"ragged m={len(pat)}: K1 (3 layouts), K2, K3 on {len(ragged)} lengths "
+        lines.append(f"ragged m={len(pat)}: K1 (3 layouts), K2, K3, K7/K8 nib and bsums (2 "
+                     f"probe tables, also vs K2/K3), K11a (2 tables) on {len(ragged)} lengths "
                      f"({ragged[0]}..{ragged[-1]} blocks) x 2 placements x 2 n_lim: "
                      f"{held} holds, max_abs_err 0, {matches} matches in all")
     # K5, K10b, K6 and K10c (one warp-per-block kernel over a persistent
@@ -835,6 +877,21 @@ def main() -> int:
     assert r.count == len(want) and not r.overflow
     assert np.array_equal(r.offsets, want), "(d) drained offsets differ"
     print(f"(d) drain capacity={drain_cap} on 16 MiB: all {r.count} offsets equal")
+    # capacity=0 is count-only, as in the reference.
+    want = find_all(eng, b"quick brown fox ")
+    for algo in ALGOS:
+        before = scan_kernel[algo].launches
+        r = match(eng, b"quick brown fox ", algo=algo, capacity=0)
+        assert (r.count, len(r.offsets), r.overflow) == (len(want), 0, len(want) > 0), (
+            f"(d) capacity=0 {algo}: count {r.count} vs {len(want)}")
+        assert scan_kernel[algo].launches > before, f"(d) capacity=0 {algo}: no scan"
+        print(f"(d) match english capacity=0 algo={algo}: count {r.count} == oracle, "
+              f"no offsets, overflow {r.overflow}")
+    try:
+        match(drain_text, drain_pat, drain=True, capacity=0)
+        raise AssertionError("(d) drain=True with capacity=0 did not raise")
+    except ValueError as e:
+        print(f"(d) drain=True with capacity=0 raises ValueError: {e}")
 
     # -- (f) pattern lists ---------------------------------------------------
     k5_f, k6_f = rk_roll.rk_candidate_bsums.launches, rk_roll.rk_candidate_pmask.launches
@@ -1327,13 +1384,16 @@ def main() -> int:
         cases[("gather_verify", f"m=16 cap_g={c}")] = (
             functools.partial(swar.gather_verify, region, g8, limit, P, M),
             functools.partial(swar.gather_verify_plain, region, g8, limit, P, M), 5)
-    # K1-K3, K5, K6, K10b and K10c take 0.1-0.3 ms, where back-to-back event
-    # times can measure the host's launch path: each also reports its own
-    # device time per call from the profiler, and that is its time in the
-    # JSON line.
+    # K1-K3, K5-K8, K10b, K10c and K11a take 0.1-0.3 ms, where back-to-back
+    # event times can measure the host's launch path: each also reports its
+    # own device time per call from the profiler, and that is its time in
+    # the JSON line.
     own_kernel = {"screen_cand_bsums": ("screen_cand_kernel", swar.screen_cand_bsums),
+                  "screen_cand_nibsums": ("screen_cand_kernel", swar.screen_cand_nibsums),
                   "naive_nib": ("naive_kernel", swar.naive_nib),
                   "naive_bsums": ("naive_kernel", swar.naive_bsums),
+                  "screened_nib": ("naive_kernel", swar.screened_nib),
+                  "screened_bsums": ("naive_kernel", swar.screened_bsums),
                   "rk_candidate_bsums": ("rk_warp_kernel", rk_roll.rk_candidate_bsums),
                   "rk_candidate_nib": ("rk_warp_kernel", rk_roll.rk_candidate_nib),
                   "rk_candidate_pmask": ("rk_warp_kernel", rk_roll.rk_candidate_pmask),

@@ -1,30 +1,40 @@
 #!/usr/bin/env python3
-"""A/B timing of the port's Rabin-Karp scans on one NVIDIA GPU.
+"""A/B timing of the port's scan kernels on one NVIDIA GPU.
 
     python3 kernel_ab.py OTHER_CHECKOUT [OTHER_CHECKOUT ...]
 
-Times the Rabin-Karp screens K5 ``rk_candidate_bsums``, K10b
-``rk_candidate_nib``, K6 ``rk_candidate_pmask`` and K10c
-``rk_candidate_bmask``, and the paths that run them, in each OTHER_CHECKOUT (a tree holding the port, for
-example a parent commit unpacked with ``git archive``) against this
-checkout, in turns X, this, this, X within one process.  Each checkout's
-port is loaded under its own module name (the port imports itself only
-relatively) and builds its kernels from its own ``csrc/``.  All run on the
-same inputs: 256 MiB of ``gen_english`` seed 42 with the bench pattern
-``"quick brown fox "``, a 509-byte slice of it and BASELINE config 2's
-eight patterns (``chip_smoke.py`` (e)'s cases), and config 2's 1 GB text.
+Times the scans of ``csrc/swar.cu`` (K1 ``screen_cand_bsums``, K2
+``naive_nib``, K3 ``naive_bsums``, K7/K8 ``screened_nib`` and
+``screened_bsums``, K11a ``screen_cand_nibsums``) and of ``csrc/rk_roll.cu``
+(K5 ``rk_candidate_bsums``, K10b ``rk_candidate_nib``, K6
+``rk_candidate_pmask``, K10c ``rk_candidate_bmask``), and the paths that run
+them, in each OTHER_CHECKOUT (a tree holding the port, for example a parent
+commit unpacked with ``git archive``) against this checkout, in turns X,
+this, this, X within one process.  Each checkout's port is loaded under its
+own module name (the port imports itself only relatively) and builds its
+kernels from its own ``csrc/``.  All run on the same inputs: 256 MiB of
+``gen_english`` seed 42 with the bench pattern ``"quick brown fox "`` (K7
+under its 'table_gs' probes, K8 under 'table_dyn''s), a 509-byte slice of
+it and BASELINE config 2's eight patterns (``chip_smoke.py`` (e)'s cases),
+the first 64 MiB of it with the dense pattern ``"e "`` (every warp takes
+the verify chains), and config 2's 1 GB text.
 
+Each checkout's SWAR kernels are listed first with their registers and
+shared memory (ptxas) and their SASS instruction count (``cuobjdump
+-sass``).
 Before timing, every case's output in X, kernels and paths, must equal
 this checkout's bit for bit.  Per turn: each kernel's device time per
 launch from torch.profiler and its CUDA event time
-(``chip_smoke.kernel_device_ms``, ``cuda_ms``); ``RabinKarpMatcher.run``
-under sparse and 'nib' emission on the device-resident 256 MiB text and
-config 2's ``RabinKarpMultiMatcher.run`` under sparse 'pselect' (K6),
-'groups' (K10c) and 'nib' (K10b) on the device-resident 1 GB text
-(host-clock passes ending in a synchronize, device time and events per
-run from torch.profiler and its split by event name in the JSON, idle
-share of the median pass).  Prints the card's name and power limit, one
-line per measurement, and a JSON summary as the last line; exits 2 without
+(``chip_smoke.kernel_device_ms``, ``cuda_ms``); on the device-resident
+256 MiB text ``BoyerMooreMatcher.run`` under sparse, 'nib' and
+``bm_screen='fused'``, ``NaiveMatcher.run`` under 'nib',
+``exp.proto_kernels.gv_offsets`` (cap_g 4096) and ``RabinKarpMatcher.run``
+under sparse and 'nib', and on the device-resident 1 GB text config 2's
+``RabinKarpMultiMatcher.run`` under sparse 'pselect' (K6), 'groups' (K10c)
+and 'nib' (K10b): host-clock passes ending in a synchronize, device time
+and events per run from torch.profiler and its split by event name, idle
+share of the median pass.  Prints the card's name and power limit, one line
+per measurement, and a JSON summary as the last line; exits 2 without
 CUDA.
 """
 
@@ -33,7 +43,9 @@ from __future__ import annotations
 import importlib
 import importlib.util
 import json
+import re
 import statistics
+import subprocess
 import sys
 from pathlib import Path
 
@@ -59,12 +71,40 @@ class Port:
     def __init__(self, root: Path, alias: str):
         load_port(root, alias)
         sub = lambda name: importlib.import_module(f"{alias}.{name}")  # noqa: E731
-        sub("utils.cuda_build").build_all()
+        self.build = sub("utils.cuda_build")
+        self.libs = self.build.build_all()
         self.rk = sub("kernels.rk_roll")
+        self.swar = sub("kernels.swar")
+        self.proto = sub("exp.proto_kernels")
         self.algos = sub("models.algorithms")
         self.multi = sub("models.multi")
         self.config = sub("utils.config")
         self.name = alias
+
+
+def sass_report(port: Port, names=("swar",)) -> list[str]:
+    """Per kernel of ``port``'s libraries ``names``: its registers and
+    shared memory (ptxas) and its SASS instruction count (``cuobjdump
+    -sass``, from the toolkit beside nvcc)."""
+    tool = Path(port.build.find_nvcc()).with_name("cuobjdump")
+    out = []
+    for name in names:
+        lib = port.libs[name]
+        used, entry = {}, None
+        for line in port.build.build_log(name).splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+            elif "ptxas info" in line and "Used" in line and entry:
+                used[entry] = line.split(":", 1)[1].strip()
+        sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                              text=True, check=True).stdout
+        for part in re.split(r"\n\s*Function : ", sass)[1:]:
+            mangled, body = part.split("\n", 1)
+            mangled = mangled.strip()
+            kernel = re.search(r"[a-z_]+_kernel(ILb[01]E)?", mangled).group(0)
+            out.append(f"{name} {kernel}: {len(re.findall(r'/[*][0-9a-f]{4}[*]/', body))} "
+                       f"SASS instructions; {used.get(mangled, '')}")
+    return out
 
 
 def main() -> int:
@@ -81,6 +121,9 @@ def main() -> int:
     from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.models.base import (
         to_device,
     )
+    from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.kernels import (
+        swar,
+    )
     from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.ops import (
         tables,
     )
@@ -96,6 +139,9 @@ def main() -> int:
     others = [Port(Path(p).resolve(), f"port_{i}") for i, p in enumerate(sys.argv[1:])]
     roots = {this.name: str(HERE), **{o.name: str(Path(p).resolve())
                                      for o, p in zip(others, sys.argv[1:])}}
+    for port in (this, *others):
+        for line in sass_report(port):
+            print(f"{roots[port.name]} {line}")
 
     text = gen_english(256 * cs.MIB, seed=42)
     n = len(text)
@@ -114,39 +160,84 @@ def main() -> int:
         device=dev)
     t16, t509, t8 = tgt([pat]), tgt([p509]), tgt(cs.config2_patterns(text))
     tbig = tgt(c2_pats)
-    cases = {  # name: (wrapper name, region, n_lim, targets, m)
-        "K5 m=16": ("rk_candidate_bsums", region, n - 16, t16, 16),
-        "K5 m=509": ("rk_candidate_bsums", region, n - 509, t509, 509),
-        "K5 k=8 m=16": ("rk_candidate_bsums", region, n - 16, t8, 16),
-        "K10b m=16": ("rk_candidate_nib", region, n - 16, t16, 16),
-        "K10b m=509": ("rk_candidate_nib", region, n - 509, t509, 509),
-        "K10b k=8 m=16": ("rk_candidate_nib", region, n - 16, t8, 16),
-        "K10b 1 GB k=8 m=16": ("rk_candidate_nib", big_region, nb - 16, tbig, 16),
-        "K6 k=8 m=16": ("rk_candidate_pmask", region, n - 16, t8, 16),
-        "K6 1 GB k=8 m=16": ("rk_candidate_pmask", big_region, nb - 16, tbig, 16),
-        "K10c k=8 m=16": ("rk_candidate_bmask", region, n - 16, t8, 16),
-        "K10c 1 GB k=8 m=16": ("rk_candidate_bmask", big_region, nb - 16, tbig, 16),
+    dense, dpat = text[: 64 * cs.MIB], b"e "
+    dense_region = to_device(np.frombuffer(dense, np.uint8), dev).view(torch.int32)
+
+    def swar_args(words, length: int, p: bytes) -> dict:
+        """K1-K3's, K7's ('table_gs' probes) and K8's ('table_dyn')
+        arguments over the kernel region of ``words``, as the matchers pass
+        them."""
+        P, M = (torch.from_numpy(a).to(dev) for a in swar.pattern_words(u8(p)))
+        _, cut = swar.kernel_region(4 * words.numel(), len(p),
+                                    this.config.MatchConfig().pallas_chunk_bytes)
+        lim = min(length - len(p), cut - 1)
+        return {"own": (words, lim, P, M),
+                "K7": (words, lim, P, M, swar.static_probes_from_table(
+                    swar.probe_table(u8(p), use_gs=True))),
+                "K8": (words, lim, P, M, swar.static_probes_from_table(
+                    swar.probe_table(u8(p))))}
+
+    sw, sd = swar_args(region, n, pat), swar_args(dense_region, len(dense), dpat)
+    cases = {  # name: (module, wrapper name, arguments, profiler event name)
+        "K1 m=16": ("swar", "screen_cand_bsums", sw["K7"], "_kernel"),
+        "K2 m=16": ("swar", "naive_nib", sw["own"], "_kernel"),
+        "K3 m=16": ("swar", "naive_bsums", sw["own"], "_kernel"),
+        "K7 nib m=16": ("swar", "screened_nib", sw["K7"], "_kernel"),
+        "K7 bsums m=16": ("swar", "screened_bsums", sw["K7"], "_kernel"),
+        "K8 nib m=16": ("swar", "screened_nib", sw["K8"], "_kernel"),
+        "K11a m=16": ("swar", "screen_cand_nibsums", sw["K7"], "_kernel"),
+        "K2 dense m=2": ("swar", "naive_nib", sd["own"], "_kernel"),
+        "K3 dense m=2": ("swar", "naive_bsums", sd["own"], "_kernel"),
+        "K7 nib dense m=2": ("swar", "screened_nib", sd["K7"], "_kernel"),
+        "K7 bsums dense m=2": ("swar", "screened_bsums", sd["K7"], "_kernel"),
+        "K5 m=16": ("rk", "rk_candidate_bsums", (region, n - 16, t16, 16, base), "rk_"),
+        "K5 m=509": ("rk", "rk_candidate_bsums", (region, n - 509, t509, 509, base), "rk_"),
+        "K5 k=8 m=16": ("rk", "rk_candidate_bsums", (region, n - 16, t8, 16, base), "rk_"),
+        "K10b m=16": ("rk", "rk_candidate_nib", (region, n - 16, t16, 16, base), "rk_"),
+        "K10b m=509": ("rk", "rk_candidate_nib", (region, n - 509, t509, 509, base), "rk_"),
+        "K10b k=8 m=16": ("rk", "rk_candidate_nib", (region, n - 16, t8, 16, base), "rk_"),
+        "K10b 1 GB k=8 m=16": ("rk", "rk_candidate_nib",
+                               (big_region, nb - 16, tbig, 16, base), "rk_"),
+        "K6 k=8 m=16": ("rk", "rk_candidate_pmask", (region, n - 16, t8, 16, base), "rk_"),
+        "K6 1 GB k=8 m=16": ("rk", "rk_candidate_pmask",
+                             (big_region, nb - 16, tbig, 16, base), "rk_"),
+        "K10c k=8 m=16": ("rk", "rk_candidate_bmask", (region, n - 16, t8, 16, base), "rk_"),
+        "K10c 1 GB k=8 m=16": ("rk", "rk_candidate_bmask",
+                               (big_region, nb - 16, tbig, 16, base), "rk_"),
     }
 
+    def wrapper(port, case):
+        mod, fn, *_rest = cases[case]
+        return getattr(getattr(port, mod), fn)
+
     def call(port, case):
-        fn, words, lim, t, m = cases[case]
-        return getattr(port.rk, fn)(words, lim, t, m, base)
+        return wrapper(port, case)(*cases[case][2])
 
     def paths_of(port) -> dict:
-        """name: (matcher, padded text, length, iterations, profiled runs)."""
+        """name: (device-resident call, iterations, profiled runs)."""
         cfg = port.config.MatchConfig()
         c2 = cfg.replace(capacity=524288, verify_capacity=524288)
         multi = port.multi.RabinKarpMultiMatcher
+        run = lambda mt, t, length: lambda: mt.run(t, length)  # noqa: E731
+        bm = lambda c: run(port.algos.BoyerMooreMatcher(pat, c, device=dev),  # noqa: E731
+                           padded, n)
         return {
-            "Rabin-Karp sparse run": (port.algos.RabinKarpMatcher(
-                pat, cfg, device=dev), padded, n, 10, 10),
-            "Rabin-Karp nib run": (port.algos.RabinKarpMatcher(
-                pat, cfg.replace(emission="nib"), device=dev), padded, n, 10, 10),
-            "config 2 pselect run": (multi(c2_pats, c2, device=dev), big_dev, nb, 3, 3),
-            "config 2 groups run": (multi(c2_pats, c2.replace(multi_gather="groups"),
-                                          device=dev), big_dev, nb, 3, 3),
-            "config 2 nib run": (multi(c2_pats, c2.replace(emission="nib"), device=dev),
-                                 big_dev, nb, 3, 3),
+            "Boyer-Moore sparse run": (bm(cfg), 10, 10),
+            "Boyer-Moore nib run": (bm(cfg.replace(emission="nib")), 10, 10),
+            "Boyer-Moore fused run": (bm(cfg.replace(bm_screen="fused")), 10, 10),
+            "naive nib run": (run(port.algos.NaiveMatcher(
+                pat, cfg.replace(emission="nib"), device=dev), padded, n), 10, 10),
+            "gv_offsets cap_g=4096": (lambda: port.proto.gv_offsets(
+                region, n, sw["K7"][2], 16, sw["K7"][4], 4096, cfg.capacity), 10, 10),
+            "Rabin-Karp sparse run": (run(port.algos.RabinKarpMatcher(
+                pat, cfg, device=dev), padded, n), 10, 10),
+            "Rabin-Karp nib run": (run(port.algos.RabinKarpMatcher(
+                pat, cfg.replace(emission="nib"), device=dev), padded, n), 10, 10),
+            "config 2 pselect run": (run(multi(c2_pats, c2, device=dev), big_dev, nb), 3, 3),
+            "config 2 groups run": (run(multi(c2_pats, c2.replace(multi_gather="groups"),
+                                              device=dev), big_dev, nb), 3, 3),
+            "config 2 nib run": (run(multi(c2_pats, c2.replace(emission="nib"), device=dev),
+                                     big_dev, nb), 3, 3),
         }
 
     paths = {port.name: paths_of(port) for port in (this, *others)}
@@ -165,22 +256,20 @@ def main() -> int:
             assert same(a, b), f"{o.name} {case}"
             del a, b
             torch.cuda.empty_cache()
-        for path, (mt, t, length, *_rest) in paths[o.name].items():
-            mine = paths[this.name][path][0]
-            assert same(mt.run(t, length), mine.run(t, length)), f"{o.name} {path}"
+        for path, (f, *_rest) in paths[o.name].items():
+            assert same(f(), paths[this.name][path][0]()), f"{o.name} {path}"
             torch.cuda.empty_cache()
         print(f"{roots[o.name]}: every case and path equals {roots[this.name]} bit for bit")
 
     def turn(port) -> dict:
         out = {}
-        for case, (fn, *_rest) in cases.items():
+        for case, (*_rest, event) in cases.items():
             f = lambda: call(port, case)  # noqa: E731
             ev = cs.cuda_ms(f, 20)
-            d, seen = cs.kernel_device_ms(f, 20, "rk_", getattr(port.rk, fn))
+            d, seen = cs.kernel_device_ms(f, 20, event, wrapper(port, case))
             out[case] = {"device_ms": d, "event_ms": ev, "recorded": seen}
             torch.cuda.empty_cache()
-        for path, (mt, t, length, iters, runs) in paths[port.name].items():
-            f = lambda: mt.run(t, length)  # noqa: E731
+        for path, (f, iters, runs) in paths[port.name].items():
             wall = statistics.median(cs.host_ms(f, iters=iters, passes=3))
             d, events, split = cs.device_profile(f, runs=runs)
             out[path] = {"wall_ms": wall, "device_ms": d, "events": events,
@@ -194,8 +283,10 @@ def main() -> int:
             r = turn(port)
             results.setdefault(port.name, []).append(r)
             for what, v in r.items():
+                split = v.get("split", {})
                 print(f"{roots[port.name]} {what}: "
                       + ", ".join(f"{k} {x:.4f}" for k, x in v.items() if k != "split")
+                      + "".join(f"; {name[:60]} {x:.4f}" for name, x in split.items())
                       + f" [{smi}]")
     print(smi)
     print(json.dumps({"card": smi, "roots": roots, "turns": results}))

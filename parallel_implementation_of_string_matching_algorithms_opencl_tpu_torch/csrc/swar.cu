@@ -10,17 +10,18 @@
 // M[a] its byte-occupancy mask (kernels/swar.py pattern_words).  Words at
 // or past n_words (the end of the kernel region) read as 0.
 //
-// Two designs share this file.  The main path's scans, K1 (the probe
-// screen) and the naive verify K2/K3, are persistent tiled kernels: a grid
-// of as many CTAs as the card holds at once walks 16 KiB tiles of the
-// region, each tile and its halo prefetched to registers while the one
-// before it is scanned, then stored to one of two shared-memory buffers,
-// and one warp scans each 512-byte output block out of shared memory
-// (scan_tiles).  The others (K7/K8, K11a, K11d) run one
-// thread per text word and 128 threads per CUDA block, so one CUDA block
-// owns one 512-byte output block (K11d's walks the eight blocks of a 4 KiB
-// group); a thread reads word w + k straight from global memory, and the
-// neighbouring threads of a warp read neighbouring words.
+// Two designs share this file.  The scans, K1 and K11a (the probe screen,
+// one template), the naive verify K2/K3 and the screened verify K7/K8 (one
+// template: the screen's probe pair is an argument), are persistent tiled
+// kernels: a grid of as many CTAs as the card holds at once walks 16 KiB
+// tiles of the region, each tile and its halo prefetched to registers while
+// the one before it is scanned, then stored to one of two shared-memory
+// buffers, and one warp scans each 512-byte output block out of shared
+// memory (scan_tiles).  K11d, the gather-verify of listed groups, runs one
+// thread per text word and 128 threads per CUDA block walking the eight
+// 512-byte blocks of a 4 KiB group; a thread reads word w + k straight from
+// global memory, and the neighbouring threads of a warp read neighbouring
+// words.
 //
 // Block sums come out in byte order: bs[b] covers bytes 512b..512b+511.
 // The JAX reference's tile-major reorder (swar.py _run) has no counterpart.
@@ -37,11 +38,13 @@ using tpm::persistent_grid;
 constexpr int kGroupWords = 8 * kBlockWords;  // one 4 KiB group of K11d
 
 struct Probes {
-  int k[4][2];  // probe word index per alignment (a pair may repeat one word)
+  // Probe word index per alignment (a pair may repeat one word); negative
+  // in kOwnScreen, where K2/K3 pick their own screen words.
+  int k[4][2];
 };
 
 // ---------------------------------------------------------------------------
-// Persistent tiled scans (K1, K2, K3)
+// Persistent tiled scans (K1-K3, K7, K8, K11a)
 // ---------------------------------------------------------------------------
 
 constexpr int kTileBlocks = 32;                        // output blocks per tile
@@ -119,13 +122,26 @@ __device__ __forceinline__ void scan_tiles(uint32_t* s, const uint32_t* words,
   }
 }
 
-// Replaces kernels/swar.py::_screen_cand_kernel (Pallas, TPU).
+// Probe screen.  kNibSums = false replaces kernels/swar.py::_screen_cand_kernel
+// (Pallas, TPU), K1; kNibSums = true replaces exp/screen_kernel_opt.py::
+// _v1_kernel (K11a) and exp/proto_kernels.py::_proto_screen_kernel (K11c).
 //
-// Boyer-Moore candidate screen: word w is a candidate when, for some
-// alignment a, both probe words of a compare equal under their masks.  The
-// count of candidate words with 4w <= n_lim (the clamp is per WORD, as in
-// the reference) goes to bs[block].  Candidates are a superset of the
+// K1, the Boyer-Moore candidate screen: word w is a candidate when, for
+// some alignment a, both probe words of a compare equal under their masks.
+// The count of candidate words with 4w <= n_lim (the clamp is per WORD, as
+// in the reference) goes to bs[block].  Candidates are a superset of the
 // matches; ops/reconstruct.extract_region verifies them exactly.
+//
+// K11a, the same compares with the reference's full epilogue
+// (swar._epilogue): bit a of a word's nibble is set when both probe words
+// of alignment a compare equal, bits with 4w + a > n_lim are cleared (the
+// clamp is per ALIGNMENT), bs[block] is the block's count of (word,
+// alignment) candidates and *total, which the C entry zeroes, their sum:
+// lane 0 of each warp keeps the sum of its blocks over the CTA's tiles and
+// adds it to *total once, after the last tile.  The reference's narrow halo
+// roll (K11a) and its (L, 1024) word and (nb, 128) block feeds (K11c) are
+// TPU layout: here both feeds are one flat word array, and the words after
+// a block are simply the next words.
 //
 // Bound on the H100: one read of the region from device memory (about
 // 80 us for 256 MiB at 3.35 TB/s), with the eight masked compares per word
@@ -140,12 +156,15 @@ __device__ __forceinline__ void scan_tiles(uint32_t* s, const uint32_t* words,
 // sum is one __reduce_add_sync, and lane 0 writes it.  A probe offset
 // shared by two alignments is read once per alignment (the offsets are
 // runtime values): those reads go to the shared-memory pipe, beside the
-// compares.
+// compares.  K11a's per-alignment clamp runs only in the block that holds
+// n_lim (a warp-uniform branch), so elsewhere it adds four bit inserts and
+// a popcount per word to K1's work.
+template <bool kNibSums>
 __global__ void __launch_bounds__(kScanThreads)
 screen_cand_kernel(const uint32_t* __restrict__ words, long long n_words,
                    long long n_lim, const uint32_t* __restrict__ P,
                    const uint32_t* __restrict__ M, int nw, Probes pr, int halo,
-                   int* __restrict__ bs) {
+                   int* __restrict__ bs, int* __restrict__ total) {
   extern __shared__ uint32_t smem[];
   uint32_t pv[4][2], mv[4][2];
 #pragma unroll
@@ -158,33 +177,51 @@ screen_cand_kernel(const uint32_t* __restrict__ words, long long n_words,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long n_blocks = n_words / kBlockWords;
   const long long wlim = n_lim >> 2;  // 4w <= n_lim  <=>  w <= floor(n_lim / 4)
-  scan_tiles(smem, words, n_words, halo, [=](int base, long long t) {
+  int sum = 0;  // K11a: lane 0's blocks, over the CTA's tiles
+  scan_tiles(smem, words, n_words, halo, [=, &sum](int base, long long t) {
 #pragma unroll
     for (int i = 0; i < kTileBlocks / kScanWarps; ++i) {
       const int lb = warp + i * kScanWarps;
       const long long b = t * kTileBlocks + lb;
       if (b >= n_blocks) break;  // the ragged last tile
-      // The block's words j <= last pass the clamp.
+      // K1: the block's words j <= last pass the clamp.  K11a: its starts
+      // at bytes 0..relc do.
       const long long rel = wlim - b * kBlockWords;
       const int last = rel < 0 ? -1 : (rel > kBlockWords ? kBlockWords : (int)rel);
+      const long long relb = n_lim - (long long)kBlockBytes * b;
+      const int relc = relb < 0 ? -1 : (int)(relb > kBlockBytes ? kBlockBytes : relb);
       const int x = base + lb * kBlockWords + lane;
       int count = 0;
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const int xq = x + 32 * q;
-        bool cand = false;
+        int hits = 0;  // bit a: alignment a's probe words compare equal
 #pragma unroll
         for (int a = 0; a < 4; ++a) {
           const uint32_t d = ((smem[xq + pr.k[a][0]] & mv[a][0]) ^ pv[a][0]) |
                              ((smem[xq + pr.k[a][1]] & mv[a][1]) ^ pv[a][1]);
-          cand |= d == 0u;
+          // K1 needs only whether any alignment hit.
+          hits |= kNibSums ? (int)(d == 0u) << a : (int)(d == 0u);
         }
-        count += cand && lane + 32 * q <= last;
+        if (kNibSums) {
+          if (relc < kBlockBytes - 1) {  // the block that holds n_lim
+            int keep = relc - 4 * (lane + 32 * q) + 1;
+            keep = keep < 0 ? 0 : (keep > 4 ? 4 : keep);
+            hits &= (1 << keep) - 1;
+          }
+          count += __popc(hits);
+        } else {
+          count += hits != 0 && lane + 32 * q <= last;
+        }
       }
       count = __reduce_add_sync(0xffffffffu, count);
-      if (lane == 0) bs[b] = count;
+      if (lane == 0) {
+        bs[b] = count;
+        sum += count;
+      }
     }
   });
+  if (kNibSums && lane == 0 && sum != 0) atomicAdd(total, sum);
 }
 
 // Exact verify of every start.  kEmitNib = true replaces
@@ -193,29 +230,43 @@ screen_cand_kernel(const uint32_t* __restrict__ words, long long n_words,
 // its gather width, and the naive matcher's emission='nib' scan.
 // kEmitNib = false replaces kernels/swar.py::_naive_sparse_kernel
 // (emit_nib=False), the naive matcher's sparse scan: the same verify
-// without the nibble store.
+// without the nibble store.  With Boyer-Moore probes in pr (K7, K8) it also
+// replaces kernels/swar.py::_screened_kernel (bm_screen='fused',
+// emission='nib'; probe indices fixed per pattern) and
+// kernels/swar.py::_screened_dyn_kernel (bm_probes='table_dyn'; probe
+// indices as runtime scalars): a runtime index costs nothing on Hopper, so
+// the TPU's split between static lane slices and dynamic rotates has no
+// counterpart, and the TPU's skip of a whole 512 KiB tile (Mosaic
+// predicates no finer, swar.py:397-405) becomes a skip per warp.
 //
 // Bit a of a word's nibble is set when the pattern matches at byte 4w + a,
 // kept only if 4w + a <= n_lim (validity per ALIGNMENT, as the reference's
-// _validity_nibble).  bs[block] is the block's exact match count.
+// _validity_nibble).  bs[block] is the block's exact match count.  The
+// screen only decides which words' chains run: a true match at alignment a
+// passes a's screen words (they are among its pattern words), so nib and bs
+// are K2's (K3's) bit for bit whatever the probes.
 //
 // Bound on the H100: one read of the region, plus one write of the int32
 // nibble plane of the same size when kEmitNib (about 80 us or 160 us for
 // 256 MiB at 3.35 TB/s).  The tiles stream through scan_tiles as K1's do.
 // The pattern's 8 nw words are staged in shared memory once per CTA.  A
 // word's chains run only past a screen that costs K1's eight compares
-// whatever m is: on text that repeats the pattern's own words (the word
-// soup chip_smoke.py times is full of "quick") a screen on one word per
-// alignment sends most warps down the chains, divergent, and costs more
-// than it saves.  Lane L owns words L + 32q of its warp's block, so
-// each nibble store is one contiguous 128-byte line per warp; the chains,
-// the clamp and the popcounts run only in warps with a hit.
+// whatever m is: alignment a's two words in pr, or for K2/K3 (negative
+// indices in pr) its first and last whole words.  On text that repeats the
+// pattern's own words (the word soup chip_smoke.py times is full of
+// "quick") a screen on one word per alignment sends most warps down the
+// chains, divergent, and costs more than it saves.  All four chains of a
+// word with a hit run, and only in warps with a hit: running alignment a's
+// chain only where a's own screen words hit (the first K7's rule) made the
+// block-sum verify 27% slower on English and gained nothing on the dense
+// text (kernel_ab.py, one H100).  Lane L owns words L + 32q of its warp's
+// block, so each nibble store is one contiguous 128-byte line per warp.
 template <bool kEmitNib>
 __global__ void __launch_bounds__(kScanThreads)
 naive_kernel(const uint32_t* __restrict__ words, long long n_words,
              long long n_lim, const uint32_t* __restrict__ P,
-             const uint32_t* __restrict__ M, int nw, int* __restrict__ nib,
-             int* __restrict__ bs) {
+             const uint32_t* __restrict__ M, int nw, Probes pr,
+             int* __restrict__ nib, int* __restrict__ bs) {
   extern __shared__ uint32_t smem[];
   uint32_t* pm = smem + 2 * kBufWords;  // P[4][nw], then M[4][nw]
   for (int t = threadIdx.x; t < 4 * nw; t += kScanThreads) {
@@ -223,22 +274,27 @@ naive_kernel(const uint32_t* __restrict__ words, long long n_words,
     pm[4 * nw + t] = M[t];
   }
   __syncthreads();
-  // Alignment a's chain is screened on two of its words, its first and
-  // last whole ones (word 0 twice if none is whole), as K1's probes: a
-  // start that fails either fails its chain, and two words far apart
-  // rarely both match where the pattern does not.
+  // K2/K3 screen alignment a on its first and last whole words (word 0
+  // twice if none is whole), as K1's 'static' probes: a start that fails
+  // either fails its chain, and two words far apart rarely both match
+  // where the pattern does not.
   int ks[4][2];
   uint32_t ps[4][2], ms[4][2];
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
-    int first = -1, last = 0;
-    for (int k = 0; k < nw; ++k)
-      if (pm[4 * nw + a * nw + k] == 0xFFFFFFFFu) {
-        first = first < 0 ? k : first;
-        last = k;
-      }
-    ks[a][0] = first < 0 ? 0 : first;
-    ks[a][1] = last;
+    if (pr.k[a][0] >= 0) {
+      ks[a][0] = pr.k[a][0];
+      ks[a][1] = pr.k[a][1];
+    } else {
+      int first = -1, last = 0;
+      for (int k = 0; k < nw; ++k)
+        if (pm[4 * nw + a * nw + k] == 0xFFFFFFFFu) {
+          first = first < 0 ? k : first;
+          last = k;
+        }
+      ks[a][0] = first < 0 ? 0 : first;
+      ks[a][1] = last;
+    }
 #pragma unroll
     for (int s = 0; s < 2; ++s) {
       ps[a][s] = pm[a * nw + ks[a][s]];
@@ -299,22 +355,6 @@ naive_kernel(const uint32_t* __restrict__ words, long long n_words,
   });
 }
 
-// Whether both probe words of alignment a compare equal under their masks
-// at word w (K11a's probe compare, read from global memory).
-__device__ __forceinline__ bool probe_hit(const uint32_t* __restrict__ words,
-                                          long long w, long long n_words,
-                                          const uint32_t* __restrict__ P,
-                                          const uint32_t* __restrict__ M,
-                                          int nw, const Probes& pr, int a) {
-  const int k0 = pr.k[a][0];
-  const int k1 = pr.k[a][1];
-  const uint32_t x0 = load_word(words, w + k0, n_words);
-  const uint32_t x1 = load_word(words, w + k1, n_words);
-  const bool h0 = (x0 & __ldg(M + a * nw + k0)) == __ldg(P + a * nw + k0);
-  const bool h1 = (x1 & __ldg(M + a * nw + k1)) == __ldg(P + a * nw + k1);
-  return h0 & h1;
-}
-
 // P[4][nw] then M[4][nw] into shared memory (2 * 4 * nw words).
 __device__ __forceinline__ void stage_pattern(const uint32_t* __restrict__ P,
                                               const uint32_t* __restrict__ M,
@@ -342,18 +382,16 @@ __device__ __forceinline__ bool verify_alignment(
 
 // Clears bit a of a word's nibble unless 4w + a <= n_lim (validity per
 // ALIGNMENT, as the reference's _validity_nibble), stores the nibble at
-// *nib_at when kEmitNib, and writes the popcount of the CUDA block's 128
-// nibbles (its exact match count) to *bs_at.  Returns that popcount in
-// thread 0 (0 in the others).  The partial sums sit in shared memory, so a
-// block that emits again passes a __syncthreads() first.
-template <bool kEmitNib>
-__device__ __forceinline__ int emit_nibble(int bits, long long w,
-                                           long long n_lim, int* nib_at,
-                                           int* bs_at) {
+// *nib_at, and writes the popcount of the CUDA block's 128 nibbles (its
+// exact match count) to *bs_at.  Returns that popcount in thread 0 (0 in
+// the others).  The partial sums sit in shared memory, so a block that
+// emits again passes a __syncthreads() first.
+__device__ __forceinline__ int emit_nibble(int bits, long long w, long long n_lim,
+                                           int* nib_at, int* bs_at) {
   long long keep = n_lim - 4 * w + 1;
   keep = keep < 0 ? 0 : (keep > 4 ? 4 : keep);
   bits &= (1 << (int)keep) - 1;
-  if (kEmitNib) *nib_at = bits;
+  *nib_at = bits;
 
   int c = __popc(bits);
 #pragma unroll
@@ -368,84 +406,6 @@ __device__ __forceinline__ int emit_nibble(int bits, long long w,
     *bs_at = s;
   }
   return s;
-}
-
-// Boyer-Moore screen, then exact verify (K7 and K8).  Replaces
-// kernels/swar.py::_screened_kernel (bm_screen='fused', emission='nib';
-// probe indices fixed per pattern) and kernels/swar.py::_screened_dyn_kernel
-// (bm_probes='table_dyn'; probe indices as runtime scalars).  Here both are
-// this one kernel: the probe indices are kernel arguments either way, and a
-// runtime index costs nothing on Hopper, so the TPU's split between static
-// lane slices and dynamic rotates has no counterpart.
-//
-// Each thread first runs K1's probe compares for its word.  Only an
-// alignment whose probe words all compare equal runs K2's AND chain; a true
-// match at alignment a passes a's probe words (they are among its pattern
-// words), so skipping the rest is exact, and nib and bs equal K2's (K3's)
-// bit for bit.  The TPU skips a whole 512 KiB tile at once because Mosaic
-// predicates no finer (swar.py:397-405); a thread here skips per word.
-// Validity is per alignment against n_lim (K2's clamp), and bs[block] is
-// the exact match count; kEmitNib also stores the nibble plane.
-//
-// Bound on the H100: as K2, one read of the region plus, with the nibble
-// plane, one write of the same size (about 80 us or 160 us for 256 MiB at
-// 3.35 TB/s).  The verify runs only on words with a probe hit, so on
-// ordinary text the work per word is K1's eight masked compares.
-template <bool kEmitNib>
-__global__ void __launch_bounds__(kBlockWords)
-screened_kernel(const uint32_t* __restrict__ words, long long n_words,
-                long long n_lim, const uint32_t* __restrict__ P,
-                const uint32_t* __restrict__ M, int nw, Probes pr,
-                int* __restrict__ nib, int* __restrict__ bs) {
-  extern __shared__ uint32_t pm[];
-  stage_pattern(P, M, nw, pm);
-  const long long w = (long long)blockIdx.x * kBlockWords + threadIdx.x;
-  int bits = 0;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const uint32_t* pa = pm + a * nw;
-    const uint32_t* ma = pm + 4 * nw + a * nw;
-    const int k0 = pr.k[a][0];
-    const int k1 = pr.k[a][1];
-    const bool h0 = (load_word(words, w + k0, n_words) & ma[k0]) == pa[k0];
-    const bool h1 = (load_word(words, w + k1, n_words) & ma[k1]) == pa[k1];
-    if (h0 && h1)
-      bits |= (int)verify_alignment(words, w, n_words, pm, nw, a) << a;
-  }
-  emit_nibble<kEmitNib>(bits, w, n_lim, kEmitNib ? nib + w : nullptr,
-                        bs + blockIdx.x);
-}
-
-// Replaces exp/screen_kernel_opt.py::_v1_kernel (K11a) and
-// exp/proto_kernels.py::_proto_screen_kernel (K11c).
-//
-// K1's probe screen with the reference's full epilogue (swar._epilogue)
-// in place of K1's count of candidate words: bit a of a word's nibble is
-// set when both probe words of alignment a compare equal, bits with
-// 4w + a > n_lim are cleared (emit_nibble), and bs[block] is the block's
-// count of (word, alignment) candidates.  Thread 0 of each CUDA block adds
-// that count to *total, which the C entry zeroes, giving the reference's
-// cnt in the same pass.  The reference's narrow halo roll (K11a) and its
-// (L, 1024) word and (nb, 128) block feeds (K11c) are TPU layout: here both
-// feeds are one flat word array, and the words after a block are simply the
-// next words.
-//
-// Bound on the H100: one read of the region, as K1 (about 80 us for 256 MiB
-// at 3.35 TB/s).  One thread per word reads its probe words from global
-// memory (K1's first design); the nibble stays in a register and only the
-// block sum and one atomic per 512 bytes are written.
-__global__ void __launch_bounds__(kBlockWords)
-screen_cand_nib_kernel(const uint32_t* __restrict__ words, long long n_words,
-                       long long n_lim, const uint32_t* __restrict__ P,
-                       const uint32_t* __restrict__ M, int nw, Probes pr,
-                       int* __restrict__ bs, int* __restrict__ total) {
-  const long long w = (long long)blockIdx.x * kBlockWords + threadIdx.x;
-  int bits = 0;
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-    bits |= (int)probe_hit(words, w, n_words, P, M, nw, pr, a) << a;
-  const int s = emit_nibble<false>(bits, w, n_lim, nullptr, bs + blockIdx.x);
-  if (threadIdx.x == 0 && s != 0) atomicAdd(total, s);
 }
 
 // Replaces exp/proto_kernels.py::_gv_kernel (K11d).
@@ -487,7 +447,7 @@ gather_verify_kernel(const uint32_t* __restrict__ words, long long n_words,
     if (listed)
       for (int a = 0; a < 4; ++a)
         bits |= (int)verify_alignment(words, w, n_words, pm, nw, a) << a;
-    sum += emit_nibble<true>(bits, w, n_lim, nib + row * kBlockWords + threadIdx.x,
+    sum += emit_nibble(bits, w, n_lim, nib + row * kBlockWords + threadIdx.x,
                              bsr + row);
     __syncthreads();  // emit_nibble's partial sums are reused by the next row
   }
@@ -506,10 +466,43 @@ int check_probes(const Probes& pr, int nw) {
   return 0;
 }
 
+// K2/K3: the verify chooses its own screen words (naive_kernel).
+constexpr Probes kOwnScreen = {{{-1, -1}, {-1, -1}, {-1, -1}, {-1, -1}}};
+
+// K1 (kNibSums = false) or K11a: bs n_words / 128 ints, total one int (K11a
+// zeroes it first).
+template <bool kNibSums>
+int launch_screen(const void* words, long long n_words, long long n_lim,
+                  const void* P, const void* M, int nw, const Probes& pr,
+                  void* bs, void* total, void* stream) {
+  if (int err = check_args(n_words, nw)) return err;
+  if (int err = check_probes(pr, nw)) return err;
+  if (nw > kMaxPatternWords) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (kNibSums) {
+    if (cudaError_t err = cudaMemsetAsync(total, 0, sizeof(int), s)) return (int)err;
+  }
+  if (n_words == 0) return 0;
+  int halo = 0;  // the largest probe offset
+  for (int a = 0; a < 4; ++a)
+    for (int k = 0; k < 2; ++k) halo = pr.k[a][k] > halo ? pr.k[a][k] : halo;
+  static tpm::GridCache ctas;
+  unsigned grid = 0;
+  if (int err = persistent_grid((const void*)screen_cand_kernel<kNibSums>,
+                                kScanThreads, kTileSmem, tiles_of(n_words), &ctas,
+                                &grid))
+    return err;
+  screen_cand_kernel<kNibSums><<<grid, kScanThreads, kTileSmem, s>>>(
+      (const uint32_t*)words, n_words, n_lim, (const uint32_t*)P,
+      (const uint32_t*)M, nw, pr, halo, (int*)bs, (int*)total);
+  return (int)cudaGetLastError();
+}
+
+// K2/K3 (pr = kOwnScreen) or K7/K8 (the Boyer-Moore probes).
 template <bool kEmitNib>
 int launch_naive(const void* words, long long n_words, long long n_lim,
-                 const void* P, const void* M, int nw, void* nib, void* bs,
-                 void* stream) {
+                 const void* P, const void* M, int nw, const Probes& pr,
+                 void* nib, void* bs, void* stream) {
   if (int err = check_args(n_words, nw)) return err;
   if (nw > kMaxPatternWords) return (int)cudaErrorInvalidValue;
   if (n_words == 0) return 0;
@@ -522,22 +515,6 @@ int launch_naive(const void* words, long long n_words, long long n_lim,
     return err;
   naive_kernel<kEmitNib><<<grid, kScanThreads, smem, (cudaStream_t)stream>>>(
       (const uint32_t*)words, n_words, n_lim, (const uint32_t*)P,
-      (const uint32_t*)M, nw, (int*)nib, (int*)bs);
-  return (int)cudaGetLastError();
-}
-
-template <bool kEmitNib>
-int launch_screened(const void* words, long long n_words, long long n_lim,
-                    const void* P, const void* M, int nw, const Probes& pr,
-                    void* nib, void* bs, void* stream) {
-  if (int err = check_args(n_words, nw)) return err;
-  if (int err = check_probes(pr, nw)) return err;
-  const long long blocks = n_words / kBlockWords;
-  if (blocks == 0) return 0;
-  const size_t smem = 2 * 4 * (size_t)nw * sizeof(uint32_t);
-  screened_kernel<kEmitNib><<<(unsigned)blocks, kBlockWords, smem,
-                              (cudaStream_t)stream>>>(
-      (const uint32_t*)words, n_words, n_lim, (const uint32_t*)P,
       (const uint32_t*)M, nw, pr, (int*)nib, (int*)bs);
   return (int)cudaGetLastError();
 }
@@ -547,43 +524,30 @@ int launch_screened(const void* words, long long n_words, long long n_lim,
 extern "C" {
 
 // bs must hold n_words / 128 ints; n_words must be a multiple of 128, nw at
-// most 128 (K1-K3) and each probe word index in [0, nw).
+// most 128 (K1-K3, K7, K8, K11a) and each probe word index in [0, nw).
 int tpm_screen_cand_bsums(const void* words, long long n_words, long long n_lim,
                           const void* P, const void* M, int nw, int k00,
                           int k01, int k10, int k11, int k20, int k21, int k30,
                           int k31, void* bs, void* stream) {
   const Probes pr = {{{k00, k01}, {k10, k11}, {k20, k21}, {k30, k31}}};
-  if (int err = check_args(n_words, nw)) return err;
-  if (int err = check_probes(pr, nw)) return err;
-  if (nw > kMaxPatternWords) return (int)cudaErrorInvalidValue;
-  if (n_words == 0) return 0;
-  int halo = 0;  // the largest probe offset
-  for (int a = 0; a < 4; ++a)
-    for (int s = 0; s < 2; ++s) halo = pr.k[a][s] > halo ? pr.k[a][s] : halo;
-  static tpm::GridCache ctas;
-  unsigned grid = 0;
-  if (int err = persistent_grid((const void*)screen_cand_kernel, kScanThreads,
-                                kTileSmem, tiles_of(n_words), &ctas, &grid))
-    return err;
-  screen_cand_kernel<<<grid, kScanThreads, kTileSmem, (cudaStream_t)stream>>>(
-      (const uint32_t*)words, n_words, n_lim, (const uint32_t*)P,
-      (const uint32_t*)M, nw, pr, halo, (int*)bs);
-  return (int)cudaGetLastError();
+  return launch_screen<false>(words, n_words, n_lim, P, M, nw, pr, bs, nullptr,
+                              stream);
 }
 
 // nib must hold n_words ints and bs n_words / 128.
 int tpm_naive_nib(const void* words, long long n_words, long long n_lim,
                   const void* P, const void* M, int nw, void* nib, void* bs,
                   void* stream) {
-  return launch_naive<true>(words, n_words, n_lim, P, M, nw, nib, bs, stream);
+  return launch_naive<true>(words, n_words, n_lim, P, M, nw, kOwnScreen, nib,
+                            bs, stream);
 }
 
 // bs must hold n_words / 128 ints.
 int tpm_naive_bsums(const void* words, long long n_words, long long n_lim,
                     const void* P, const void* M, int nw, void* bs,
                     void* stream) {
-  return launch_naive<false>(words, n_words, n_lim, P, M, nw, nullptr, bs,
-                             stream);
+  return launch_naive<false>(words, n_words, n_lim, P, M, nw, kOwnScreen,
+                             nullptr, bs, stream);
 }
 
 // K7/K8 with the nibble plane: the probe word indices per alignment as in
@@ -594,8 +558,9 @@ int tpm_screened_nib(const void* words, long long n_words, long long n_lim,
                      int k10, int k11, int k20, int k21, int k30, int k31,
                      void* nib, void* bs, void* stream) {
   const Probes pr = {{{k00, k01}, {k10, k11}, {k20, k21}, {k30, k31}}};
-  return launch_screened<true>(words, n_words, n_lim, P, M, nw, pr, nib, bs,
-                               stream);
+  if (int err = check_probes(pr, nw)) return err;
+  return launch_naive<true>(words, n_words, n_lim, P, M, nw, pr, nib, bs,
+                            stream);
 }
 
 // K7/K8 without the nibble plane: bs only (exact match counts).
@@ -604,8 +569,9 @@ int tpm_screened_bsums(const void* words, long long n_words, long long n_lim,
                        int k10, int k11, int k20, int k21, int k30, int k31,
                        void* bs, void* stream) {
   const Probes pr = {{{k00, k01}, {k10, k11}, {k20, k21}, {k30, k31}}};
-  return launch_screened<false>(words, n_words, n_lim, P, M, nw, pr, nullptr,
-                                bs, stream);
+  if (int err = check_probes(pr, nw)) return err;
+  return launch_naive<false>(words, n_words, n_lim, P, M, nw, pr, nullptr, bs,
+                             stream);
 }
 
 // K11a/K11c: probe indices as in tpm_screen_cand_bsums, each in [0, nw).
@@ -616,16 +582,8 @@ int tpm_screen_cand_nibsums(const void* words, long long n_words,
                             int k20, int k21, int k30, int k31, void* bs,
                             void* total, void* stream) {
   const Probes pr = {{{k00, k01}, {k10, k11}, {k20, k21}, {k30, k31}}};
-  if (int err = check_args(n_words, nw)) return err;
-  if (int err = check_probes(pr, nw)) return err;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (cudaError_t err = cudaMemsetAsync(total, 0, sizeof(int), s)) return (int)err;
-  const long long blocks = n_words / kBlockWords;
-  if (blocks == 0) return 0;
-  screen_cand_nib_kernel<<<(unsigned)blocks, kBlockWords, 0, s>>>(
-      (const uint32_t*)words, n_words, n_lim, (const uint32_t*)P,
-      (const uint32_t*)M, nw, pr, (int*)bs, (int*)total);
-  return (int)cudaGetLastError();
+  return launch_screen<true>(words, n_words, n_lim, P, M, nw, pr, bs, total,
+                             stream);
 }
 
 // K11d: words holds whole 4 KiB groups (n_words a multiple of 1024), g8 the

@@ -156,7 +156,11 @@ class Matcher:
     def match_all(self, data) -> MatchResult:
         """Like ``match`` but returns EVERY offset even when the count
         exceeds ``config.capacity``, by windowed re-extraction
-        (``extract_range``)."""
+        (``extract_range``).  Raises ValueError for ``capacity=0``
+        (count-only): its windows could never hold an offset."""
+        if self.config.capacity == 0:
+            raise ValueError("drain=True needs capacity >= 1; capacity=0 is "
+                             "count-only")
         arr = as_byte_array(data)
         res = self.match(arr)
         if not res.overflow:

@@ -61,7 +61,8 @@ MULTI_GATHER = ("pselect", "blocks", "groups")
 class MatchConfig:
     """Knobs for a match run (field meanings as in the JAX package)."""
 
-    # Offset-buffer capacity per call (counts stay exact on overflow).
+    # Offset-buffer capacity per call (counts stay exact on overflow); 0 is
+    # count-only: no offsets, overflow exactly when there is a match.
     capacity: int = 65536
     # Rabin-Karp candidates verified by a gathered window compare; more take
     # a full shifted compare (ops/rabin_karp.verify_candidates).
@@ -109,7 +110,9 @@ class MatchConfig:
                 f"(whole 512-byte blocks per chunk), got "
                 f"{self.pallas_chunk_bytes}"
             )
-        for field in ("capacity", "verify_capacity", "kmp_chunk", "bm_chunk"):
+        if self.capacity < 0:
+            raise ValueError(f"capacity must be >= 0, got {self.capacity}")
+        for field in ("verify_capacity", "kmp_chunk", "bm_chunk"):
             if getattr(self, field) < 1:
                 raise ValueError(
                     f"{field} must be >= 1, got {getattr(self, field)}")

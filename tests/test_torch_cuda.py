@@ -142,7 +142,10 @@ def _placed(words: np.ndarray, where: str, device) -> torch.Tensor:
 @pytest.mark.parametrize("length", [1, 31, 32, 33, 97, "span+1"])
 def test_tiled_scans_bit_exact_on_ragged_regions(length, pat, where, cuda_device):
     """K1 (under the 'static', 'table_gs' and 'table_gs1' probe layouts),
-    K2 and K3 equal their plain versions bit for bit (tolerance 0) on
+    K2, K3, K7/K8 (``screened_nib`` and ``screened_bsums`` under the
+    'table_gs' and the 'table_dyn' probes, also against K2 and K3) and K11a
+    (``screen_cand_nibsums``, the same two probe sets) equal their plain
+    versions bit for bit (tolerance 0) on
     regions of 1, 31, 32, 33 and 97 blocks and of one tile more than a
     whole number of grid spans ('span+1': SMs x c tiles + 1 for every
     c = 1..8 CTAs per SM, so one of them is the kernel's span plus one
@@ -156,6 +159,8 @@ def test_tiled_scans_bit_exact_on_ragged_regions(length, pat, where, cuda_device
         "table_gs1": swar.static_probes_from_table(
             swar.probe_table(u, use_gs=True, single=True)),
     }
+    screened = {"table_gs": layouts["table_gs"],
+                "table_dyn": swar.static_probes_from_table(swar.probe_table(u))}
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
     lengths = ([TILE_BLOCKS * (sms * c + 1) for c in range(1, 9)]
                if length == "span+1" else [length])
@@ -181,6 +186,26 @@ def test_tiled_scans_bit_exact_on_ragged_regions(length, pat, where, cuda_device
             assert torch.equal(nib, nib_p) and torch.equal(bs2, bs_p), f"K2, {what}"
             assert torch.equal(bs3, bs_p), f"K3, {what}"
             assert int(bs_p.sum()) > 0
+            for name, probes in screened.items():
+                counts = (swar.screened_nib.launches, swar.screened_bsums.launches,
+                          swar.screen_cand_nibsums.launches)
+                got7 = swar.screened_nib(words, n_lim, P, M, probes)
+                got8 = swar.screened_bsums(words, n_lim, P, M, probes)
+                got11 = swar.screen_cand_nibsums(words, n_lim, P, M, probes)
+                torch.cuda.synchronize()
+                assert (swar.screened_nib.launches, swar.screened_bsums.launches,
+                        swar.screen_cand_nibsums.launches) == tuple(c + 1 for c in counts)
+                plain7 = swar.screened_nib_plain(words, n_lim, P, M, probes)
+                assert torch.equal(got7[0], plain7[0]) and torch.equal(got7[1], plain7[1]), (
+                    f"K7/K8 nib {name}, {what}")
+                assert torch.equal(got7[0], nib) and torch.equal(got7[1], bs2), (
+                    f"K7/K8 nib {name} vs K2, {what}")
+                assert torch.equal(got8, swar.screened_bsums_plain(
+                    words, n_lim, P, M, probes)), f"K7/K8 bsums {name}, {what}"
+                assert torch.equal(got8, bs3), f"K7/K8 bsums {name} vs K3, {what}"
+                plain11 = swar.screen_cand_nibsums_plain(words, n_lim, P, M, probes)
+                assert torch.equal(got11[0], plain11[0]) and torch.equal(
+                    got11[1], plain11[1]), f"K11a {name}, {what}"
         del words
 
 
@@ -361,6 +386,26 @@ def test_match_end_to_end_per_algorithm(algo, cuda_device):
         assert kernel.launches == before + 1
     r = match(text, b"the ", algo=algo, config=cfg, drain=True)
     assert r.offsets_list() == find_all(text, b"the ")
+
+
+@pytest.mark.parametrize("algo", ["boyer_moore", "naive", "kmp", "rabin_karp"])
+def test_count_only_match(algo, cuda_device):
+    """capacity=0 on the card: the oracle's count, no offsets, overflow
+    exactly when there is a match, under both emissions, for a pattern and
+    a list; drain=True with capacity=0 raises."""
+    text = bytes(gen_english(4 << 20, seed=23))
+    for e in ("sparse", "nib"):
+        cfg = MatchConfig(capacity=0, emission=e)
+        for pat in (b"quick brown fox ", b"e ", b"zq\x00zq", text[5000:5509]):
+            r = match(text, pat, algo=algo, config=cfg)
+            n = len(find_all(text, pat))
+            assert (r.count, r.offsets_list(), r.overflow) == (n, [], n > 0), (e, pat)
+        pats = [b"quick brown fox ", b"lazy dog and cat", b"the "]
+        for pat, r in zip(pats, match(text, pats, algo=algo, config=cfg)):
+            n = len(find_all(text, pat))
+            assert (r.count, r.offsets_list(), r.overflow) == (n, [], n > 0), (e, pat)
+    with pytest.raises(ValueError):
+        match(text, b"the ", algo=algo, config=MatchConfig(capacity=0), drain=True)
 
 
 @pytest.mark.parametrize("m", [2, 16, 509])

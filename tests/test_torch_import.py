@@ -96,7 +96,7 @@ def test_ported_opt_in_modes_run(field, value):
 
 
 @pytest.mark.parametrize("kw", [
-    {"pad_multiple": 6}, {"pallas_chunk_bytes": 1000}, {"capacity": 0},
+    {"pad_multiple": 6}, {"pallas_chunk_bytes": 1000}, {"capacity": -1},
     {"bm_probes": "nope"}, {"emission": "dense"},
     {"bm_variant": "skip"}, {"bm_chunk": 0},
 ])

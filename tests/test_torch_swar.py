@@ -149,8 +149,12 @@ def test_ragged_regions_plain_verify_equals_oracle(blocks, pat):
     block (mid-block and its last byte): the plain K2's matches are the
     oracle's starts <= n_lim over the region followed by zeros, its block
     sums count them and the plain K3's equal its; the plain K1's block
-    sums cover every block holding a match under each probe layout.
-    tests/test_torch_cuda.py holds the kernels to these plain versions."""
+    sums cover every block holding a match under each probe layout; the
+    plain K7/K8 (under the 'table_gs' and the 'table_dyn' probes) equal
+    K2 and K3; the plain K11a's (word, alignment) candidates per block lie
+    between K2's matches and four times K1's candidate words, and its
+    total sums them.  tests/test_torch_cuda.py holds the kernels to these
+    plain versions."""
     words = _ragged_region(blocks, pat)
     P, M = (torch.from_numpy(a) for a in
             swar.pattern_words(np.frombuffer(pat, np.uint8)))
@@ -165,9 +169,20 @@ def test_ragged_regions_plain_verify_equals_oracle(blocks, pat):
                                               minlength=blocks).to(torch.int32))
         assert torch.equal(swar.naive_bsums(words, n_lim, P, M), bs)
         assert pat != b"ab\x00\x00" or n_lim < n - 2 or n - 2 in want
-        for probes in _probe_layouts(pat).values():
+        layouts = _probe_layouts(pat)
+        for probes in layouts.values():
             cand = swar.screen_cand_bsums(words, n_lim, P, M, probes)
             assert bool((cand[bs > 0] > 0).all()) and bool((cand >= 0).all())
+        u = np.frombuffer(pat, np.uint8)
+        for probes in (layouts["table_gs"],
+                       swar.static_probes_from_table(swar.probe_table(u))):
+            got = swar.screened_nib(words, n_lim, P, M, probes)
+            assert torch.equal(got[0], nib) and torch.equal(got[1], bs)
+            assert torch.equal(swar.screened_bsums(words, n_lim, P, M, probes), bs)
+            k11a, total = swar.screen_cand_nibsums(words, n_lim, P, M, probes)
+            k1 = swar.screen_cand_bsums(words, n_lim, P, M, probes)
+            assert bool((bs <= k11a).all()) and bool((k11a <= 4 * k1).all())
+            assert int(total) == int(k11a.sum())
 
 
 def test_wrappers_reject_bad_inputs():

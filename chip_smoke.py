@@ -18,7 +18,10 @@ source, in parallel), then:
     ``rk_candidate_nib``, K6 ``rk_candidate_pmask`` and K10c
     ``rk_candidate_bmask`` on the same ragged lengths (m=16 and m=509 with
     one target, m=16 with k=8, 31 and 40, K6 up to k=31; regions that end
-    their allocation or start 16 bytes into a buffer); K4 ``kmp_bsums``
+    their allocation or start 16 bytes into a buffer); K4 ``kmp_bsums`` and
+    K10a ``kmp_nib`` on the same ragged lengths and placements at m = 1, 2,
+    5, 16, 17, 31, 32, 33, 64, 255 and 256 (K = 1, 2, 8; a corpus slice and
+    the same ending in NUL bytes, which matches at the region's end); K4
     (K = 1 at m=16, the m=64
     screen on pattern[:32], K = 2 at m=64, K = 8 at m=256), K5
     ``rk_candidate_bsums`` (m=16, m=509, and k=8 targets) and K6
@@ -82,10 +85,11 @@ source, in parallel), then:
     (``run_variant`` 'v1' and 'v2', ``exp.proto_kernels.gv_offsets``)
     against the oracle, and on the dense 64 MiB text, whose occupied groups
     outnumber cap_g, against the oracle on the listed groups;
-(e) times every kernel and its plain version with CUDA events (K9 beside
-    K4 / K10a at the same m, K10c beside K6; K1-K3, K5, K6, K7/K8, K10b,
-    K10c and K11a also by their own device time per call from
-    torch.profiler, their time in the JSON line), ``match``
+(e) times every kernel and its plain version with CUDA events (K4 / K10a
+    at m = 16, 64 and 256, K9 beside them, K10c beside K6; all but K11d
+    also by their own device time per call from torch.profiler, their time
+    in the JSON line, found by kernel name: K4 / K10a ``kmp_warp_kernel``,
+    K9 ``kmp_scan_kernel``), ``match``
     per algorithm on a device-resident text (host clock, and device time
     and idle share from torch.profiler), sparse and 'nib' in alternating
     passes, and from host bytes, the KMP dense-DFA tail at m=509, K6,
@@ -132,13 +136,17 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 # INT32 instruction rate: the 67 TFLOP/s fp32 peak counts an FMA as two
 # operations on 128 lanes per SM; Hopper runs INT32 on 64 lanes per SM.
 INT32_OPS_PER_S = 67e12 / 4
+# Shared-memory lookups: 32 a clock per SM, at the clock that peak implies
+# (67e12 / (132 SMs * 256 operations a clock)).
+LOOKUPS_PER_S = 67e12 / 8
 
 
-def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound(n_bytes: float, n_ops: float, n_lookups: float = 0) -> tuple[float, str]:
     """(ms, what bounds it): the least time for moving ``n_bytes`` through
-    device memory and issuing ``n_ops`` integer operations."""
+    device memory, issuing ``n_ops`` integer operations and ``n_lookups``
+    shared-memory lookups, the largest of the three."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / INT32_OPS_PER_S * 1e3
+    t_ops = max(n_ops / INT32_OPS_PER_S, n_lookups / LOOKUPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -284,12 +292,13 @@ def kernel_device_ms(fn, runs: int, name: str, wrapper) -> tuple[float, int]:
 
 RAGGED_PATTERNS = (b"e", b"quick brown fox ", b"ab\x00\x00",
                    bytes(range(1, 256)) + bytes(range(1, 255)))  # m = 509
+KMP_RAGGED_M = (1, 2, 5, 16, 17, 31, 32, 33, 64, 255, 256)
 
 
-def ragged_words(blocks: int, pat: bytes):
+def ragged_words(blocks: int, pat: bytes, tail: bytes | None = None):
     """tests/test_torch_cuda.py's ragged region: int32 words of ``blocks``
     512-byte blocks of seeded English, whole copies of ``pat`` planted and
-    its first two bytes as the region's last two."""
+    ``tail`` (default: its first two bytes) as the region's last bytes."""
     import numpy as np
 
     from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.utils.io import (
@@ -304,7 +313,8 @@ def ragged_words(blocks: int, pat: bytes):
         if off >= end and off + m <= n:
             data[off : off + m] = pat
             end = off + m
-    data[n - len(pat[:2]) :] = pat[:2]
+    tail = pat[:2] if tail is None else tail
+    data[n - len(tail) :] = tail
     return np.frombuffer(bytes(data), np.int32)
 
 
@@ -630,6 +640,37 @@ def main() -> int:
         lines.append(f"ragged RK m={m} k={k}: {which} on {len(ragged)} lengths x 2 "
                      f"placements (end, lead16) x 2 n_lim: {held} holds, max_abs_err 0, "
                      f"{cands} candidates in all")
+    # K4 and K10a (a warp per block, the automaton carried across each
+    # warp's span) at the same lengths and n_lim, K = 1, 2 and 8: a slice of
+    # the English corpus and, for m >= 2, the same ending in NUL bytes, the
+    # region ending in the pattern without them (at n_lim = its last byte a
+    # start there matches the zeros past the region, in the plain versions
+    # too); regions that end their allocation or start 16 bytes into a
+    # buffer.
+    for m in KMP_RAGGED_M:
+        held = starts = 0
+        head = b"e" if m == 1 else eng[777777 : 777777 + m]
+        pats = [head] if m == 1 else [head, head[: m - min(2, m - 1)] + b"\x00" * min(2, m - 1)]
+        for pat in pats:
+            bt = torch.from_numpy(shift_and.b_table(np.frombuffer(pat, np.uint8))).to(dev)
+            for blocks in ragged:
+                host_words = ragged_words(blocks, pat, tail=pat.rstrip(b"\x00"))
+                for where in ("end", "lead16"):
+                    words = placed(host_words, where, dev)
+                    n_r = 4 * words.numel()
+                    for lim in (n_r - 512 + 137, n_r - 1):
+                        what = f"ragged m={m} {pat[-2:]!r} {blocks} blocks {where} n_lim={lim}"
+                        nib_p, bs_p = shift_and.kmp_nib_plain(words, lim, bt, m)
+                        hold("kmp_bsums", what, shift_and.kmp_bsums(words, lim, bt, m), bs_p,
+                             quiet=True)
+                        hold("kmp_nib", what, shift_and.kmp_nib(words, lim, bt, m),
+                             (nib_p, bs_p), quiet=True)
+                        held += 2
+                        starts += int(bs_p.sum())
+                    del words
+        lines.append(f"ragged KMP m={m} K={shift_and.state_words(m)} ({len(pats)} patterns): "
+                     f"K4, K10a on {len(ragged)} lengths x 2 placements (end, lead16) x 2 "
+                     f"n_lim: {held} holds, max_abs_err 0, {starts} starts in all")
     torch.cuda.empty_cache()
 
     for name in ("english", "dna"):
@@ -1247,6 +1288,8 @@ def main() -> int:
     u8 = lambda b: np.frombuffer(b, np.uint8)  # noqa: E731
     bt16 = torch.from_numpy(shift_and.b_table(u8(pat))).to(dev)
     bt256 = torch.from_numpy(shift_and.b_table(u8(p256))).to(dev)
+    p64 = long_pats["english"][64]
+    bt64 = torch.from_numpy(shift_and.b_table(u8(p64))).to(dev)
     base = int(tables.RK_BASE)
     t16 = torch.tensor([int(tables.rk_hash(u8(pat)))], device=dev)
     t509 = torch.tensor([int(tables.rk_hash(u8(p509)))], device=dev)
@@ -1259,21 +1302,28 @@ def main() -> int:
     # compare) per probe word and alignment per word, plus the verify of
     # the candidate words (one alignment's nw compares) for K7/K8; one
     # masked compare per alignment per word for the exact verify (a chain
-    # stops at its first mismatch); three per state word per byte for the
-    # automaton (shift, OR-AND, carry), whatever step or lookup K9 takes,
-    # since every variant computes K4's / K10a's function; two multiply-adds
-    # plus one compare per target per byte for the hash, the same for K6's
-    # pattern mask: a start's pattern bits are needed only where it hits.
+    # stops at its first mismatch); for the automaton of K state words two
+    # per word per byte (a funnel shift, an AND) plus one for the hit, and
+    # K table lookups per byte in shared memory, whatever step or lookup K9
+    # takes, since every variant computes K4's / K10a's function; two
+    # multiply-adds plus one compare per target per byte for the hash, the
+    # same for K6's pattern mask: a start's pattern bits are needed only
+    # where it hits.
     words, bsb = Nk / 4, Nk / 128
     n_probe = sum(len(ks) for ks in probes)
     nw = P.shape[1]
     screen_ops = words * 2 * n_probe + cand_words["english"] * 2 * nw
-    shapes = {  # (kernel, what): (bytes, operations)
+
+    def kmp(n_bytes, K):  # the automaton's (bytes, operations, lookups)
+        return n_bytes, Nk * (2 * K + 1), Nk * K
+
+    shapes = {  # (kernel, what): (bytes, operations[, lookups])
         ("screen_cand_bsums", "m=16"): (Nk + bsb, words * 2 * n_probe),
         ("naive_nib", "m=16"): (2 * Nk + bsb, words * 8),
         ("naive_bsums", "m=16"): (Nk + bsb, words * 8),
-        ("kmp_bsums", "m=16"): (Nk + bsb, Nk * 3),
-        ("kmp_bsums", "m=256 K=8"): (Nk + bsb, Nk * 3 * 8),
+        ("kmp_bsums", "m=16"): kmp(Nk + bsb, 1),
+        ("kmp_bsums", "m=64 K=2"): kmp(Nk + bsb, 2),
+        ("kmp_bsums", "m=256 K=8"): kmp(Nk + bsb, 8),
         ("rk_candidate_bsums", "m=16"): (Nk + bsb, Nk * 3),
         ("rk_candidate_bsums", "m=509"): (Nk + bsb, Nk * 3),
         ("rk_candidate_bsums", "k=8 m=16"): (Nk + bsb, Nk * 10),
@@ -1281,19 +1331,20 @@ def main() -> int:
         ("screened_nib", "m=16 K7"): (2 * Nk + bsb, screen_ops),
         ("screened_nib", "m=16 K8"): (2 * Nk + bsb, screen_ops),
         ("screened_bsums", "m=16 K7"): (Nk + bsb, screen_ops),
-        ("kmp_nib", "m=16"): (2 * Nk + bsb, Nk * 3),
-        ("kmp_nib", "m=256 K=8"): (2 * Nk + bsb, Nk * 3 * 8),
+        ("kmp_nib", "m=16"): kmp(2 * Nk + bsb, 1),
+        ("kmp_nib", "m=64 K=2"): kmp(2 * Nk + bsb, 2),
+        ("kmp_nib", "m=256 K=8"): kmp(2 * Nk + bsb, 8),
         ("rk_candidate_nib", "m=16"): (2 * Nk + bsb, Nk * 3),
         ("rk_candidate_nib", "m=509"): (2 * Nk + bsb, Nk * 3),
         ("rk_candidate_nib", "k=8 m=16"): (2 * Nk + bsb, Nk * 10),
-        ("kmp_bsums_composed", "m=16"): (Nk + bsb, Nk * 3),
-        ("kmp_bsums_composed", "m=256 K=8"): (Nk + bsb, Nk * 3 * 8),
-        ("kmp_bsums_compare_b", "m=16"): (Nk + bsb, Nk * 3),
-        ("kmp_bsums_compare_b", "m=16 composed"): (Nk + bsb, Nk * 3),
-        ("kmp_nib_composed", "m=16"): (2 * Nk + bsb, Nk * 3),
-        ("kmp_nib_composed", "m=256 K=8"): (2 * Nk + bsb, Nk * 3 * 8),
-        ("kmp_nib_compare_b", "m=16"): (2 * Nk + bsb, Nk * 3),
-        ("kmp_nib_compare_b", "m=16 composed"): (2 * Nk + bsb, Nk * 3),
+        ("kmp_bsums_composed", "m=16"): kmp(Nk + bsb, 1),
+        ("kmp_bsums_composed", "m=256 K=8"): kmp(Nk + bsb, 8),
+        ("kmp_bsums_compare_b", "m=16"): kmp(Nk + bsb, 1),
+        ("kmp_bsums_compare_b", "m=16 composed"): kmp(Nk + bsb, 1),
+        ("kmp_nib_composed", "m=16"): kmp(2 * Nk + bsb, 1),
+        ("kmp_nib_composed", "m=256 K=8"): kmp(2 * Nk + bsb, 8),
+        ("kmp_nib_compare_b", "m=16"): kmp(2 * Nk + bsb, 1),
+        ("kmp_nib_compare_b", "m=16 composed"): kmp(2 * Nk + bsb, 1),
         ("rk_candidate_bmask", "k=8 m=16"): (Nk + bsb, Nk * 10),
     }
     cases = {  # (kernel, what): (kernel call, plain call, plain iterations)
@@ -1309,6 +1360,9 @@ def main() -> int:
         ("kmp_bsums", "m=16"): (
             lambda: shift_and.kmp_bsums(region, n - 16, bt16, 16),
             lambda: shift_and.kmp_bsums_plain(region, n - 16, bt16, 16), 5),
+        ("kmp_bsums", "m=64 K=2"): (
+            lambda: shift_and.kmp_bsums(region, n - 64, bt64, 64),
+            lambda: shift_and.kmp_bsums_plain(region, n - 64, bt64, 64), 2),
         ("kmp_bsums", "m=256 K=8"): (
             lambda: shift_and.kmp_bsums(region, n - 256, bt256, 256),
             lambda: shift_and.kmp_bsums_plain(region, n - 256, bt256, 256), 2),
@@ -1336,6 +1390,9 @@ def main() -> int:
         ("kmp_nib", "m=16"): (
             lambda: shift_and.kmp_nib(region, n - 16, bt16, 16),
             lambda: shift_and.kmp_nib_plain(region, n - 16, bt16, 16), 3),
+        ("kmp_nib", "m=64 K=2"): (
+            lambda: shift_and.kmp_nib(region, n - 64, bt64, 64),
+            lambda: shift_and.kmp_nib_plain(region, n - 64, bt64, 64), 1),
         ("kmp_nib", "m=256 K=8"): (
             lambda: shift_and.kmp_nib(region, n - 256, bt256, 256),
             lambda: shift_and.kmp_nib_plain(region, n - 256, bt256, 256), 1),
@@ -1384,10 +1441,11 @@ def main() -> int:
         cases[("gather_verify", f"m=16 cap_g={c}")] = (
             functools.partial(swar.gather_verify, region, g8, limit, P, M),
             functools.partial(swar.gather_verify_plain, region, g8, limit, P, M), 5)
-    # K1-K3, K5-K8, K10b, K10c and K11a take 0.1-0.3 ms, where back-to-back
-    # event times can measure the host's launch path: each also reports its
-    # own device time per call from the profiler, and that is its time in
-    # the JSON line.
+    # K1-K8, K10a-c and K11a take 0.1-0.6 ms, where back-to-back event times
+    # can measure the host's launch path: each also reports its own device
+    # time per call from the profiler, and that is its time in the JSON
+    # line.  The profiler's kernel name shows which kernel ran: K4/K10a the
+    # warp kernel, K9 the per-thread kernel.
     own_kernel = {"screen_cand_bsums": ("screen_cand_kernel", swar.screen_cand_bsums),
                   "screen_cand_nibsums": ("screen_cand_kernel", swar.screen_cand_nibsums),
                   "naive_nib": ("naive_kernel", swar.naive_nib),
@@ -1397,7 +1455,11 @@ def main() -> int:
                   "rk_candidate_bsums": ("rk_warp_kernel", rk_roll.rk_candidate_bsums),
                   "rk_candidate_nib": ("rk_warp_kernel", rk_roll.rk_candidate_nib),
                   "rk_candidate_pmask": ("rk_warp_kernel", rk_roll.rk_candidate_pmask),
-                  "rk_candidate_bmask": ("rk_warp_kernel", rk_roll.rk_candidate_bmask)}
+                  "rk_candidate_bmask": ("rk_warp_kernel", rk_roll.rk_candidate_bmask),
+                  "kmp_bsums": ("kmp_warp_kernel", shift_and.kmp_bsums),
+                  "kmp_nib": ("kmp_warp_kernel", shift_and.kmp_nib),
+                  **{k9: ("kmp_scan_kernel", shift_and.kmp_nib if k9.startswith("kmp_nib")
+                          else shift_and.kmp_bsums) for k9 in K9_NAMES}}
     ms, plain_ms, bounds, shape = {}, {}, {}, {}
     for (k, what), (kern, plain, plain_iters) in cases.items():
         kt = cuda_ms(kern, 20)

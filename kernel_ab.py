@@ -5,37 +5,39 @@
 
 Times the scans of ``csrc/swar.cu`` (K1 ``screen_cand_bsums``, K2
 ``naive_nib``, K3 ``naive_bsums``, K7/K8 ``screened_nib`` and
-``screened_bsums``, K11a ``screen_cand_nibsums``) and of ``csrc/rk_roll.cu``
+``screened_bsums``, K11a ``screen_cand_nibsums``), of ``csrc/rk_roll.cu``
 (K5 ``rk_candidate_bsums``, K10b ``rk_candidate_nib``, K6
-``rk_candidate_pmask``, K10c ``rk_candidate_bmask``), and the paths that run
-them, in each OTHER_CHECKOUT (a tree holding the port, for example a parent
-commit unpacked with ``git archive``) against this checkout, in turns X,
-this, this, X within one process.  Each checkout's port is loaded under its
-own module name (the port imports itself only relatively) and builds its
-kernels from its own ``csrc/``.  All run on the same inputs: 256 MiB of
+``rk_candidate_pmask``, K10c ``rk_candidate_bmask``) and of
+``csrc/shift_and.cu`` (K4 ``kmp_bsums``, K10a ``kmp_nib``), and the paths
+that run them, in each OTHER_CHECKOUT (a tree holding the port, for example
+a parent commit unpacked with ``git archive``) against this checkout, in
+turns X, this, this, X within one process.  Each checkout's port is loaded
+under its own module name (the port imports itself only relatively) and
+builds its kernels from its own ``csrc/``.  All run on the same inputs: 256 MiB of
 ``gen_english`` seed 42 with the bench pattern ``"quick brown fox "`` (K7
 under its 'table_gs' probes, K8 under 'table_dyn''s), a 509-byte slice of
 it and BASELINE config 2's eight patterns (``chip_smoke.py`` (e)'s cases),
-the first 64 MiB of it with the dense pattern ``"e "`` (every warp takes
-the verify chains), and config 2's 1 GB text.
+64- and 256-byte slices for K4/K10a (K = 2 and 8 state words), the first
+64 MiB of it with the dense pattern ``"e "`` (every warp takes the verify
+chains), and config 2's 1 GB text.
 
-Each checkout's SWAR kernels are listed first with their registers and
-shared memory (ptxas) and their SASS instruction count (``cuobjdump
--sass``).
+Each checkout's SWAR and Shift-AND kernels are listed first with their
+registers and shared memory (ptxas) and their SASS instruction count
+(``cuobjdump -sass``).
 Before timing, every case's output in X, kernels and paths, must equal
 this checkout's bit for bit.  Per turn: each kernel's device time per
 launch from torch.profiler and its CUDA event time
 (``chip_smoke.kernel_device_ms``, ``cuda_ms``); on the device-resident
 256 MiB text ``BoyerMooreMatcher.run`` under sparse, 'nib' and
 ``bm_screen='fused'``, ``NaiveMatcher.run`` under 'nib',
-``exp.proto_kernels.gv_offsets`` (cap_g 4096) and ``RabinKarpMatcher.run``
-under sparse and 'nib', and on the device-resident 1 GB text config 2's
-``RabinKarpMultiMatcher.run`` under sparse 'pselect' (K6), 'groups' (K10c)
-and 'nib' (K10b): host-clock passes ending in a synchronize, device time
-and events per run from torch.profiler and its split by event name, idle
-share of the median pass.  Prints the card's name and power limit, one line
-per measurement, and a JSON summary as the last line; exits 2 without
-CUDA.
+``exp.proto_kernels.gv_offsets`` (cap_g 4096), ``RabinKarpMatcher.run``
+and ``KMPMatcher.run`` under sparse and 'nib', and on the device-resident
+1 GB text config 2's ``RabinKarpMultiMatcher.run`` under sparse 'pselect'
+(K6), 'groups' (K10c) and 'nib' (K10b): host-clock passes ending in a
+synchronize, device time and events per run from torch.profiler and its
+split by event name, idle share of the median pass.  Prints the card's
+name and power limit, one line per measurement, and a JSON summary as the
+last line; exits 2 without CUDA.
 """
 
 from __future__ import annotations
@@ -74,6 +76,7 @@ class Port:
         self.build = sub("utils.cuda_build")
         self.libs = self.build.build_all()
         self.rk = sub("kernels.rk_roll")
+        self.shift_and = sub("kernels.shift_and")
         self.swar = sub("kernels.swar")
         self.proto = sub("exp.proto_kernels")
         self.algos = sub("models.algorithms")
@@ -82,11 +85,27 @@ class Port:
         self.name = alias
 
 
-def sass_report(port: Port, names=("swar",)) -> list[str]:
+def largest_loop(body: str) -> str:
+    """The largest loop of a kernel's SASS ``body`` (a backward branch and
+    the instructions up to its target): its instructions, LDS and SHFL."""
+    ins = [(int(a, 16), op) for a, op in re.findall(
+        r"/[*]([0-9a-f]{4,})[*]/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)[^;]*;", body)]
+    spans = [(int(t, 16), a) for a, t in re.findall(
+        r"/[*]([0-9a-f]{4,})[*]/\s+(?:@!?U?P\w+\s+)?BRA\s+0x([0-9a-f]+)", body)]
+    spans = [(lo, int(hi, 16)) for lo, hi in spans if lo <= int(hi, 16)]
+    if not spans:
+        return "no loop"
+    lo, hi = max(spans, key=lambda s: s[1] - s[0])
+    ops = [op.split(".")[0] for a, op in ins if lo <= a <= hi]
+    return f"loop {len(ops)} ({ops.count('LDS')} LDS, {ops.count('SHFL')} SHFL)"
+
+
+def sass_report(port: Port, names=("swar", "shift_and")) -> list[str]:
     """Per kernel of ``port``'s libraries ``names``: its registers and
-    shared memory (ptxas) and its SASS instruction count (``cuobjdump
-    -sass``, from the toolkit beside nvcc)."""
-    tool = Path(port.build.find_nvcc()).with_name("cuobjdump")
+    shared memory (ptxas), its SASS instruction count (``cuobjdump -sass``,
+    from the toolkit beside nvcc) and its largest loop's, named with its
+    template arguments (``cu++filt``)."""
+    bin_dir = Path(port.build.find_nvcc()).parent
     out = []
     for name in names:
         lib = port.libs[name]
@@ -96,14 +115,17 @@ def sass_report(port: Port, names=("swar",)) -> list[str]:
                 entry = line.split("'")[1]
             elif "ptxas info" in line and "Used" in line and entry:
                 used[entry] = line.split(":", 1)[1].strip()
-        sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
-                              text=True, check=True).stdout
-        for part in re.split(r"\n\s*Function : ", sass)[1:]:
-            mangled, body = part.split("\n", 1)
-            mangled = mangled.strip()
-            kernel = re.search(r"[a-z_]+_kernel(ILb[01]E)?", mangled).group(0)
+        sass = subprocess.run([str(bin_dir / "cuobjdump"), "-sass", str(lib)],
+                              capture_output=True, text=True, check=True).stdout
+        parts = [part.split("\n", 1) for part in re.split(r"\n\s*Function : ", sass)[1:]]
+        plain = subprocess.run([str(bin_dir / "cu++filt")], capture_output=True, text=True,
+                               check=True, input="\n".join(p[0].strip() for p in parts)
+                               ).stdout.splitlines()
+        for (mangled, body), readable in zip(parts, plain):
+            kernel = re.search(r"\w+_kernel(<[^<>]*>)?", readable).group(0)
             out.append(f"{name} {kernel}: {len(re.findall(r'/[*][0-9a-f]{4}[*]/', body))} "
-                       f"SASS instructions; {used.get(mangled, '')}")
+                       f"SASS instructions, {largest_loop(body)}; "
+                       f"{used.get(mangled.strip(), '')}")
     return out
 
 
@@ -160,6 +182,8 @@ def main() -> int:
         device=dev)
     t16, t509, t8 = tgt([pat]), tgt([p509]), tgt(cs.config2_patterns(text))
     tbig = tgt(c2_pats)
+    bt = {m: torch.from_numpy(this.shift_and.b_table(u8(p))).to(dev)
+          for m, p in ((16, pat), (64, text[123457 : 123457 + 64]), (256, p509[:256]))}
     dense, dpat = text[: 64 * cs.MIB], b"e "
     dense_region = to_device(np.frombuffer(dense, np.uint8), dev).view(torch.int32)
 
@@ -204,6 +228,10 @@ def main() -> int:
         "K10c k=8 m=16": ("rk", "rk_candidate_bmask", (region, n - 16, t8, 16, base), "rk_"),
         "K10c 1 GB k=8 m=16": ("rk", "rk_candidate_bmask",
                                (big_region, nb - 16, tbig, 16, base), "rk_"),
+        **{f"K4 m={m}": ("shift_and", "kmp_bsums", (region, n - m, t, m), "kmp_")
+           for m, t in bt.items()},
+        **{f"K10a m={m}": ("shift_and", "kmp_nib", (region, n - m, t, m), "kmp_")
+           for m, t in bt.items()},
     }
 
     def wrapper(port, case):
@@ -232,6 +260,10 @@ def main() -> int:
             "Rabin-Karp sparse run": (run(port.algos.RabinKarpMatcher(
                 pat, cfg, device=dev), padded, n), 10, 10),
             "Rabin-Karp nib run": (run(port.algos.RabinKarpMatcher(
+                pat, cfg.replace(emission="nib"), device=dev), padded, n), 10, 10),
+            "KMP sparse run": (run(port.algos.KMPMatcher(pat, cfg, device=dev), padded, n),
+                               10, 10),
+            "KMP nib run": (run(port.algos.KMPMatcher(
                 pat, cfg.replace(emission="nib"), device=dev), padded, n), 10, 10),
             "config 2 pselect run": (run(multi(c2_pats, c2, device=dev), big_dev, nb), 3, 3),
             "config 2 groups run": (run(multi(c2_pats, c2.replace(multi_gather="groups"),

@@ -89,8 +89,10 @@
 
 namespace {
 
+using tpm::byte_at;
 using tpm::kBlockBytes;
 using tpm::load16;
+using tpm::word_of;
 
 constexpr int kMaxPattern = 509;
 constexpr int kMaxPmaskTargets = 31;
@@ -107,17 +109,6 @@ constexpr int kWarps = kWarpThreads / 32;
 constexpr int kRowWords = 20;
 constexpr int kRingWords = 64 * kRowWords;
 constexpr size_t kRingSmem = (size_t)kWarps * kRingWords * sizeof(uint32_t);
-
-// Word i (0..3, a compile-time constant after unrolling) of a 16-byte group.
-__device__ __forceinline__ uint32_t word_of(const uint4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
-// Byte b (0..15, a compile-time constant after unrolling) of a 16-byte
-// group, in one byte permute.
-__device__ __forceinline__ uint32_t byte_at(const uint4& v, int b) {
-  return __byte_perm(word_of(v, b >> 2), 0u, 0x4440u | (b & 3));
-}
 
 // kO = m & 15 (the launch picks the instance): the ring row at which a
 // lane's reads of P(s + m) cross is then known at compile time.

@@ -69,6 +69,16 @@ __device__ __forceinline__ uint32_t byte_of(const uint4& v, int b) {
   return (w >> (8 * (b & 3))) & 0xFFu;
 }
 
+// Word i (0..3, a compile-time constant after unrolling) of a 16-byte group.
+__device__ __forceinline__ uint32_t word_of(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// byte_of in one byte permute.
+__device__ __forceinline__ uint32_t byte_at(const uint4& v, int b) {
+  return __byte_perm(word_of(v, b >> 2), 0u, 0x4440u | (b & 3));
+}
+
 }  // namespace tpm
 
 // Each csrc/<name>.cu is one translation unit and one shared library, so

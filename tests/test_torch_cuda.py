@@ -614,6 +614,113 @@ def test_k9_variants_bit_exact(m, cuda_device, monkeypatch):
     assert int(bs4.sum()) >= 4
 
 
+KMP_RAGGED_M = [1, 2, 5, 16, 17, 31, 32, 33, 64, 255, 256]
+
+
+def _kmp_ragged_patterns(m: int) -> list[bytes]:
+    """An English slice of m bytes and, for m >= 2, the same ending in NUL
+    bytes (two, one at m = 2)."""
+    base = b"e" if m == 1 else bytes(gen_english(m, seed=1300 + m))
+    if m == 1:
+        return [base]
+    z = 1 if m == 2 else 2
+    return [base, base[: m - z] + b"\x00" * z]
+
+
+def _kmp_ragged_region(blocks: int, pat: bytes) -> np.ndarray:
+    """int32 words of ``blocks`` 512-byte blocks of seeded English with
+    ``pat`` planted across every block boundary (so across every span
+    boundary of the warp kernel whatever its grid) at varying offsets, at
+    every other one with one byte changed (a near miss), and the region
+    ending in ``pat`` without its trailing NUL bytes: with n_lim at the
+    last byte, a start there matches against the zeros past the region."""
+    n = 512 * blocks
+    data = bytearray(gen_english(n, seed=1400 + blocks + len(pat)))
+    m = len(pat)
+    end = 0
+    for b in range(1, blocks):
+        off = 512 * b - m // 2 - b % 3
+        if off >= end and off + m <= n:
+            data[off : off + m] = pat
+            if b % 2:
+                data[off + (7 * b) % m] ^= 3
+            end = off + m
+    head = pat.rstrip(b"\x00")
+    data[n - len(head) :] = head
+    return np.frombuffer(bytes(data), np.int32)
+
+
+@pytest.mark.parametrize("where", ["end", "lead16"])
+@pytest.mark.parametrize("m", KMP_RAGGED_M)
+@pytest.mark.parametrize("length", [1, 31, 32, 33, 97, "span+1"])
+def test_kmp_scans_bit_exact_on_ragged_regions(length, m, where, cuda_device, monkeypatch):
+    """K4 and K10a (the warp kernel: each warp carries the automaton over a
+    contiguous span of blocks) equal their plain versions bit for bit
+    (tolerance 0) at K = 1, 2 and 8 state words on regions of 1, 31, 32, 33
+    and 97 blocks and of one tile more than a whole number of grid spans
+    (as in test_tiled_scans_bit_exact_on_ragged_regions), with the pattern
+    across every block boundary, n_lim mid-way into the last block and at
+    its last byte, and a pattern ending in NUL bytes that matches at the
+    region's end; K9 (composed step, m >= 5, and compare-B, m <= 32) equals
+    them; each launch counts once."""
+    monkeypatch.setattr(shift_and, "STEP_PATH", "perbyte")
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    lengths = ([TILE_BLOCKS * (sms * c + 1) for c in range(1, 9)]
+               if length == "span+1" else [length])
+    for pat in _kmp_ragged_patterns(m):
+        bt = torch.from_numpy(shift_and.b_table(_u8(pat))).to(cuda_device)
+        k9 = ([("composed", None)] if m >= shift_and.COMPOSED_MIN_M else []) + (
+            [("perbyte", pat)] if m <= 32 else [])
+        for blocks in lengths:
+            words = _placed(_kmp_ragged_region(blocks, pat), where, cuda_device)
+            n = 4 * words.numel()
+            for n_lim in (n - 512 + 137, n - 1):
+                what = f"{pat!r} {blocks} blocks, n_lim {n_lim}"
+                counts = (shift_and.kmp_bsums.launches, shift_and.kmp_nib.launches)
+                bs = shift_and.kmp_bsums(words, n_lim, bt, m)
+                nib, bs10 = shift_and.kmp_nib(words, n_lim, bt, m)
+                torch.cuda.synchronize()
+                assert (shift_and.kmp_bsums.launches, shift_and.kmp_nib.launches) == (
+                    counts[0] + 1, counts[1] + 1)
+                nib_p, bs_p = shift_and.kmp_nib_plain(words, n_lim, bt, m)
+                assert torch.equal(bs, bs_p), f"K4, {what}"
+                assert torch.equal(nib, nib_p) and torch.equal(bs10, bs_p), f"K10a, {what}"
+                assert int(bs_p.sum()) >= (blocks > 1)
+                for path, key in k9:
+                    monkeypatch.setattr(shift_and, "STEP_PATH", path)
+                    got = shift_and.kmp_nib(words, n_lim, bt, m, pat_key=key)
+                    assert torch.equal(got[0], nib_p) and torch.equal(got[1], bs_p), (
+                        f"K9 {path} {'compare-B' if key else ''}, {what}")
+                    monkeypatch.setattr(shift_and, "STEP_PATH", "perbyte")
+            if pat.endswith(b"\x00"):  # the start at the region's end counts
+                s = n - len(pat.rstrip(b"\x00"))
+                assert int(nib_p[s // 4]) >> (s % 4) & 1, what
+            del words
+
+
+def test_kmp_launches_name_their_kernel(cuda_device, monkeypatch):
+    """On the card K4 and K10a run ``kmp_warp_kernel``, and K9 (composed
+    step, compare-B) ``kmp_scan_kernel``: the kernel names torch.profiler
+    records for one call each."""
+    from torch.profiler import ProfilerActivity, profile
+
+    pat = b"quick brown fox "
+    words, limit, _, _ = _region(TILE, pat, cuda_device)
+    bt = torch.from_numpy(shift_and.b_table(_u8(pat))).to(cuda_device)
+    for path, key, kernel in (("perbyte", None, "kmp_warp_kernel"),
+                              ("composed", None, "kmp_scan_kernel"),
+                              ("perbyte", pat, "kmp_scan_kernel")):
+        monkeypatch.setattr(shift_and, "STEP_PATH", path)
+        for fn in (shift_and.kmp_bsums, shift_and.kmp_nib):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn(words, limit, bt, len(pat), pat_key=key)
+                torch.cuda.synchronize()
+            names = {e.name for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA and "kmp_" in e.name}
+            assert names and all(kernel in x for x in names), (fn.__name__, path, names)
+
+
 def test_kmp_composed_match_end_to_end(cuda_device, monkeypatch):
     """match(algo='kmp') with ``shift_and.STEP_PATH = "composed"`` on
     4 MiB, sparse (the m > 32 screen too) and 'nib': exact against the

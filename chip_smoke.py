@@ -21,7 +21,9 @@ source, in parallel), then:
     their allocation or start 16 bytes into a buffer); K4 ``kmp_bsums`` and
     K10a ``kmp_nib`` on the same ragged lengths and placements at m = 1, 2,
     5, 16, 17, 31, 32, 33, 64, 255 and 256 (K = 1, 2, 8; a corpus slice and
-    the same ending in NUL bytes, which matches at the region's end); K4
+    the same ending in NUL bytes, which matches at the region's end), and
+    K9 (the composed step at m >= 5, compare-B per byte and composed at m
+    <= 32) there against the plain versions and K4 / K10a; K4
     (K = 1 at m=16, the m=64
     screen on pattern[:32], K = 2 at m=64, K = 8 at m=256), K5
     ``rk_candidate_bsums`` (m=16, m=509, and k=8 targets) and K6
@@ -80,16 +82,17 @@ source, in parallel), then:
     K1's; K11c (``exp.proto_kernels.proto_screen`` on the word and the
     block view) against K11a; K11b (``exp.screen_kernel_opt.run_variant``
     'v2' at R = 128, 256, 512) against K1; K11d ``gather_verify`` (cap_g
-    1024, 2048, 4096 and a list with fill ids) against its plain version
-    and K2's nibble plane on the listed groups; then drives the path
-    (``run_variant`` 'v1' and 'v2', ``exp.proto_kernels.gv_offsets``)
+    1024, 2048, 4096, a list with fill ids, and one with the region's last
+    group, repeated, unordered, negative and out-of-range ids) against its
+    plain version and K2's nibble plane on the listed groups; then drives
+    the path (``run_variant`` 'v1' and 'v2', ``exp.proto_kernels.gv_offsets``)
     against the oracle, and on the dense 64 MiB text, whose occupied groups
     outnumber cap_g, against the oracle on the listed groups;
 (e) times every kernel and its plain version with CUDA events (K4 / K10a
-    at m = 16, 64 and 256, K9 beside them, K10c beside K6; all but K11d
-    also by their own device time per call from torch.profiler, their time
-    in the JSON line, found by kernel name: K4 / K10a ``kmp_warp_kernel``,
-    K9 ``kmp_scan_kernel``), ``match``
+    at m = 16, 64 and 256, K9 beside them, K10c beside K6; each also by its
+    own device time per call from torch.profiler, its time in the JSON
+    line, found by kernel name: K4, K10a and K9 ``kmp_warp_kernel``, K11d
+    ``naive_groups_kernel``, its memset apart), ``match``
     per algorithm on a device-resident text (host clock, and device time
     and idle share from torch.profiler), sparse and 'nib' in alternating
     passes, and from host bytes, the KMP dense-DFA tail at m=509, K6,
@@ -646,9 +649,14 @@ def main() -> int:
     # region ending in the pattern without them (at n_lim = its last byte a
     # start there matches the zeros past the region, in the plain versions
     # too); regions that end their allocation or start 16 bytes into a
-    # buffer.
+    # buffer.  K9 on the same regions, against the plain versions and
+    # K4 / K10a: the composed step (m >= 5) and compare-B per byte and
+    # composed (m <= 32).
     for m in KMP_RAGGED_M:
         held = starts = 0
+        k9 = ([("composed", None)] if m >= shift_and.COMPOSED_MIN_M else []) + (
+            [("perbyte", True)] if m <= 32 else []) + (
+            [("composed", True)] if shift_and.COMPOSED_MIN_M <= m <= 32 else [])
         head = b"e" if m == 1 else eng[777777 : 777777 + m]
         pats = [head] if m == 1 else [head, head[: m - min(2, m - 1)] + b"\x00" * min(2, m - 1)]
         for pat in pats:
@@ -661,16 +669,29 @@ def main() -> int:
                     for lim in (n_r - 512 + 137, n_r - 1):
                         what = f"ragged m={m} {pat[-2:]!r} {blocks} blocks {where} n_lim={lim}"
                         nib_p, bs_p = shift_and.kmp_nib_plain(words, lim, bt, m)
-                        hold("kmp_bsums", what, shift_and.kmp_bsums(words, lim, bt, m), bs_p,
-                             quiet=True)
-                        hold("kmp_nib", what, shift_and.kmp_nib(words, lim, bt, m),
-                             (nib_p, bs_p), quiet=True)
+                        k4 = shift_and.kmp_bsums(words, lim, bt, m)
+                        k10a = shift_and.kmp_nib(words, lim, bt, m)
+                        hold("kmp_bsums", what, k4, bs_p, quiet=True)
+                        hold("kmp_nib", what, k10a, (nib_p, bs_p), quiet=True)
                         held += 2
+                        for path, cmp in k9:
+                            key = pat if cmp else None
+                            tag = f"{what} {path}{' compare-B' if cmp else ''}"
+                            v = "compare_b" if cmp else "composed"
+                            got = on_step(path, shift_and.kmp_bsums, words, lim, bt, m, pat_key=key)
+                            hold(f"kmp_bsums_{v}", tag, got, bs_p, quiet=True)
+                            hold(f"kmp_bsums_{v}", f"{tag} vs K4", got, k4, quiet=True)
+                            got = on_step(path, shift_and.kmp_nib, words, lim, bt, m, pat_key=key)
+                            hold(f"kmp_nib_{v}", tag, got, (nib_p, bs_p), quiet=True)
+                            hold(f"kmp_nib_{v}", f"{tag} vs K10a", got, k10a, quiet=True)
+                            held += 4
                         starts += int(bs_p.sum())
                     del words
+        k9_tags = [f"{p}{' compare-B' if c else ''}" for p, c in k9]
         lines.append(f"ragged KMP m={m} K={shift_and.state_words(m)} ({len(pats)} patterns): "
-                     f"K4, K10a on {len(ragged)} lengths x 2 placements (end, lead16) x 2 "
-                     f"n_lim: {held} holds, max_abs_err 0, {starts} starts in all")
+                     f"K4, K10a, K9 {k9_tags} (also vs K4 / K10a) on {len(ragged)} lengths "
+                     f"x 2 placements (end, lead16) x 2 n_lim: {held} holds, max_abs_err 0, "
+                     f"{starts} starts in all")
     torch.cuda.empty_cache()
 
     for name in ("english", "dna"):
@@ -1188,11 +1209,17 @@ def main() -> int:
             lists = [(f"cap_g={c}", proto_kernels.group_ids(got[0], c)) for c in cap_gs]
             lists.append(("fill ids", torch.tensor([0, 5, 127, 128, nb8, nb8 - 1, nb8],
                                                    dtype=torch.int32, device=dev)))
+            # The region's last group (its halo past the text) first and
+            # again, repeated and unordered ids, negative and out-of-range
+            # ids, the fill id.
+            lists.append(("edge ids", torch.tensor(
+                [nb8 - 1, -1, 300, 300, 7, nb8, nb8 + 9, -4096, 6, 8, nb8 - 1],
+                dtype=torch.int32, device=dev)))
             for tag, g8 in lists:
                 gv = swar.gather_verify(words, g8, n - m, Pp, Mp)
                 hold("gather_verify", f"{what} {tag}", gv,
                      swar.gather_verify_plain(words, g8, n - m, Pp, Mp))
-                listed = g8 < nb8
+                listed = (g8 >= 0) & (g8 < nb8)
                 want = torch.zeros_like(gv[0])
                 want[listed] = rows[g8[listed].long()]
                 hold("gather_verify", f"{what} {tag} vs K2 rows", gv[0], want)
@@ -1202,7 +1229,8 @@ def main() -> int:
             del k2_nib, rows
     print("(h) exp/ kernels bit-exact (tolerance 0): K11a vs plain, K11c (both views) "
           "vs K11a, K11b (R=128/256/512) vs K1, K11d vs plain and K2's rows "
-          "(cap_g 1024/2048/4096 and a list with fill ids):")
+          "(cap_g 1024/2048/4096, a list with fill ids and one with the last group, "
+          "repeated, unordered, negative and out-of-range ids):")
     for s in lines:
         print(f"  {s}")
 
@@ -1444,8 +1472,9 @@ def main() -> int:
     # K1-K8, K10a-c and K11a take 0.1-0.6 ms, where back-to-back event times
     # can measure the host's launch path: each also reports its own device
     # time per call from the profiler, and that is its time in the JSON
-    # line.  The profiler's kernel name shows which kernel ran: K4/K10a the
-    # warp kernel, K9 the per-thread kernel.
+    # line.  The profiler's kernel name shows which kernel ran: K4, K10a
+    # and K9 the warp kernel, K11d K2's verify on gathered tiles (its
+    # memset apart, below).
     own_kernel = {"screen_cand_bsums": ("screen_cand_kernel", swar.screen_cand_bsums),
                   "screen_cand_nibsums": ("screen_cand_kernel", swar.screen_cand_nibsums),
                   "naive_nib": ("naive_kernel", swar.naive_nib),
@@ -1458,7 +1487,8 @@ def main() -> int:
                   "rk_candidate_bmask": ("rk_warp_kernel", rk_roll.rk_candidate_bmask),
                   "kmp_bsums": ("kmp_warp_kernel", shift_and.kmp_bsums),
                   "kmp_nib": ("kmp_warp_kernel", shift_and.kmp_nib),
-                  **{k9: ("kmp_scan_kernel", shift_and.kmp_nib if k9.startswith("kmp_nib")
+                  "gather_verify": ("naive_groups_kernel", swar.gather_verify),
+                  **{k9: ("kmp_warp_kernel", shift_and.kmp_nib if k9.startswith("kmp_nib")
                           else shift_and.kmp_bsums) for k9 in K9_NAMES}}
     ms, plain_ms, bounds, shape = {}, {}, {}, {}
     for (k, what), (kern, plain, plain_iters) in cases.items():
@@ -1475,7 +1505,7 @@ def main() -> int:
             ms[k], plain_ms[k], bounds[k], shape[k] = t, pt, (b_ms, b_by), what
         # Text bytes per second; K11d reads only its groups: bytes it moves.
         rate = (f"{Nk / t / 1e6:.1f} GB/s kernel" if k != "gather_verify" else
-                f"{shapes[(k, what)][0] / kt / 1e6:.1f} GB/s moved")
+                f"{shapes[(k, what)][0] / t / 1e6:.1f} GB/s moved")
         print(f"(e) {k} 256 MiB english {what}: kernel {kt:.4f} ms (events){own}, plain "
               f"{pt:.4f} ms, bound {b_ms:.4f} ms by {b_by} ({b_ms / kt:.3f} of it), "
               f"{rate} {card}")
@@ -1597,12 +1627,14 @@ def main() -> int:
           f"{1 - dev_ms / statistics.median(run_ms):.3f} of the median pass {card}")
 
     # A K11d call is a memset and a kernel of a few microseconds each, so
-    # its event time above is the host's launch path: the device's share.
+    # its event time above is the host's launch path: the device's share,
+    # the kernel and the memset apart.
     for c, g8 in gv_ids.items():
-        dev_ms, per_run, _ = device_profile(functools.partial(
+        dev_ms, per_run, split = device_profile(functools.partial(
             swar.gather_verify, region, g8, limit, P, M), runs=20)
+        parts = ", ".join(f"{name[:40]} {x:.4f} ms" for name, x in split.items())
         print(f"(e) gather_verify m=16 cap_g={c}: device {dev_ms:.4f} ms per call in "
-              f"{per_run:.0f} device events (memset, kernel) {card}")
+              f"{per_run:.0f} device events ({parts}) {card}")
 
     # The exp/ path: the reference's "kernel+gids" (group ids and K11d) and
     # "full recon" (and the decode) per cap_g, then gv_offsets (screen

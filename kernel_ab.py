@@ -8,8 +8,12 @@ Times the scans of ``csrc/swar.cu`` (K1 ``screen_cand_bsums``, K2
 ``screened_bsums``, K11a ``screen_cand_nibsums``), of ``csrc/rk_roll.cu``
 (K5 ``rk_candidate_bsums``, K10b ``rk_candidate_nib``, K6
 ``rk_candidate_pmask``, K10c ``rk_candidate_bmask``) and of
-``csrc/shift_and.cu`` (K4 ``kmp_bsums``, K10a ``kmp_nib``), and the paths
-that run them, in each OTHER_CHECKOUT (a tree holding the port, for example
+``csrc/shift_and.cu`` (K4 ``kmp_bsums``, K10a ``kmp_nib``, and K9: the
+same wrappers on the composed-4 step at m=16 and m=256 (K = 8) and with
+the compare-B lookup at m=16 per byte and composed, ``STEP_PATH`` set on
+each checkout's own module around its calls), K11d ``gather_verify``
+(cap_g 4096, 1024 and 2048 on the groups of K11a's candidates), and the
+paths that run them, in each OTHER_CHECKOUT (a tree holding the port, for example
 a parent commit unpacked with ``git archive``) against this checkout, in
 turns X, this, this, X within one process.  Each checkout's port is loaded
 under its own module name (the port imports itself only relatively) and
@@ -87,7 +91,9 @@ class Port:
 
 def largest_loop(body: str) -> str:
     """The largest loop of a kernel's SASS ``body`` (a backward branch and
-    the instructions up to its target): its instructions, LDS and SHFL."""
+    the instructions up to its target) that reads shared memory, or the
+    largest loop where none does: its instructions, LDS and SHFL.  (A
+    compare-B prologue's loop has none and can be the longer.)"""
     ins = [(int(a, 16), op) for a, op in re.findall(
         r"/[*]([0-9a-f]{4,})[*]/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)[^;]*;", body)]
     spans = [(int(t, 16), a) for a, t in re.findall(
@@ -95,9 +101,22 @@ def largest_loop(body: str) -> str:
     spans = [(lo, int(hi, 16)) for lo, hi in spans if lo <= int(hi, 16)]
     if not spans:
         return "no loop"
-    lo, hi = max(spans, key=lambda s: s[1] - s[0])
-    ops = [op.split(".")[0] for a, op in ins if lo <= a <= hi]
+    loops = [[op.split(".")[0] for a, op in ins if lo <= a <= hi] for lo, hi in spans]
+    ops = max(loops, key=lambda ops: ("LDS" in ops, len(ops)))
     return f"loop {len(ops)} ({ops.count('LDS')} LDS, {ops.count('SHFL')} SHFL)"
+
+
+def kernel_name(readable: str) -> str:
+    """A demangled kernel's name with its template arguments (nested
+    brackets such as ``<unnamed>`` included), namespaces dropped."""
+    found = re.search(r"\w+_kernel", readable)
+    name, depth = found.group(0), 0
+    for i in range(found.end(), len(readable) if readable[found.end():][:1] == "<" else 0):
+        depth += {"<": 1, ">": -1}.get(readable[i], 0)
+        if depth == 0:
+            name += readable[found.end():i + 1]
+            break
+    return re.sub(r"\(anonymous namespace\)::|<unnamed>::", "", name)
 
 
 def sass_report(port: Port, names=("swar", "shift_and")) -> list[str]:
@@ -122,7 +141,7 @@ def sass_report(port: Port, names=("swar", "shift_and")) -> list[str]:
                                check=True, input="\n".join(p[0].strip() for p in parts)
                                ).stdout.splitlines()
         for (mangled, body), readable in zip(parts, plain):
-            kernel = re.search(r"\w+_kernel(<[^<>]*>)?", readable).group(0)
+            kernel = kernel_name(readable)
             out.append(f"{name} {kernel}: {len(re.findall(r'/[*][0-9a-f]{4}[*]/', body))} "
                        f"SASS instructions, {largest_loop(body)}; "
                        f"{used.get(mangled.strip(), '')}")
@@ -233,13 +252,36 @@ def main() -> int:
         **{f"K10a m={m}": ("shift_and", "kmp_nib", (region, n - m, t, m), "kmp_")
            for m, t in bt.items()},
     }
+    # K9: each wrapper on the composed step and with compare-B's pat_key,
+    # under the step path given last (set on each checkout's own module).
+    for fn, tag in (("kmp_bsums", "bsums"), ("kmp_nib", "nib")):
+        for what, m, step, key in (("composed m=16", 16, "composed", None),
+                                   ("composed m=256", 256, "composed", None),
+                                   ("compare-B m=16", 16, "perbyte", pat),
+                                   ("compare-B composed m=16", 16, "composed", pat)):
+            args = (region, n - m, bt[m], m)
+            cases[f"K9 {tag} {what}"] = ("shift_and", fn, args, "kmp_", {"pat_key": key}, step)
+    # K11d at each cap_g on the groups of K11a's candidates.
+    bs_a = swar.screen_cand_nibsums(*sw["K7"])[0]
+    for c in (4096, 1024, 2048):
+        g8 = this.proto.group_ids(bs_a, c)
+        cases[f"K11d cap_g={c}"] = ("swar", "gather_verify", (region, g8, *sw["own"][1:]),
+                                    "_kernel")
 
     def wrapper(port, case):
         mod, fn, *_rest = cases[case]
         return getattr(getattr(port, mod), fn)
 
     def call(port, case):
-        return wrapper(port, case)(*cases[case][2])
+        _mod, _fn, args, _event, *opt = cases[case]
+        kw, step = opt if opt else ({}, None)
+        if step is None:
+            return wrapper(port, case)(*args, **kw)
+        old, port.shift_and.STEP_PATH = port.shift_and.STEP_PATH, step
+        try:
+            return wrapper(port, case)(*args, **kw)
+        finally:
+            port.shift_and.STEP_PATH = old
 
     def paths_of(port) -> dict:
         """name: (device-resident call, iterations, profiled runs)."""
@@ -295,7 +337,7 @@ def main() -> int:
 
     def turn(port) -> dict:
         out = {}
-        for case, (*_rest, event) in cases.items():
+        for case, (_mod, _fn, _args, event, *_opt) in cases.items():
             f = lambda: call(port, case)  # noqa: E731
             ev = cs.cuda_ms(f, 20)
             d, seen = cs.kernel_device_ms(f, 20, event, wrapper(port, case))

@@ -16,11 +16,6 @@ namespace tpm {
 constexpr int kBlockBytes = 512;  // bytes per output block sum
 constexpr int kBlockWords = 128;  // 32-bit words per output block sum
 
-__device__ __forceinline__ uint32_t load_word(const uint32_t* __restrict__ words,
-                                              long long j, long long n_words) {
-  return j < n_words ? __ldg(words + j) : 0u;
-}
-
 // 16 bytes at byte offset p (a multiple of 16).  The region holds whole
 // 512-byte blocks, so a 16-byte group lies either wholly inside it or wholly
 // past its end.
@@ -61,12 +56,6 @@ inline int persistent_grid(const void* kernel, int threads, size_t smem,
   }
   *grid = (unsigned)(n_items < cache->ctas[dev] ? n_items : cache->ctas[dev]);
   return 0;
-}
-
-// Byte b (0..15, a compile-time constant after unrolling) of a 16-byte group.
-__device__ __forceinline__ uint32_t byte_of(const uint4& v, int b) {
-  const uint32_t w = b < 4 ? v.x : b < 8 ? v.y : b < 12 ? v.z : v.w;
-  return (w >> (8 * (b & 3))) & 0xFFu;
 }
 
 // Word i (0..3, a compile-time constant after unrolling) of a 16-byte group.

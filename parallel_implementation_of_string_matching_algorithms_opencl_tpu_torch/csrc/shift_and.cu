@@ -5,7 +5,9 @@
 // its host wrapper's end-to-start shift end_nibble3_to_start_nib (K10a,
 // kmp_nib); and with its opt-in variants (K9), the composed-4 step
 // group_composed and the compare-B lookup lookup_compare, under either
-// emission.
+// emission.  One kernel template, kmp_warp_kernel<K, kEmitNib, kStep,
+// kLookup>, runs them all: every variant computes the same function, bit
+// for bit.
 //
 // The automaton runs D = ((D << 1) | 1) & B[c] over K = ceil(m/32) state
 // words: bit j of D is "pattern[0..j] ends at this byte", B[k][c] has bit j
@@ -16,13 +18,13 @@
 // largest valid start; bytes past the region read as 0, as in the plain
 // versions.
 //
-// K4 and K10a: kmp_warp_kernel<K, kEmitNib>, a warp per 512-byte block.
-// A persistent grid (tpm::persistent_grid) of 256-thread CTAs gives each
-// warp one contiguous span of blocks, walked in order; lane l loads bytes
-// [16l, 16l + 16) of a block (one coalesced 512-byte load per warp, the next
-// block in flight to registers).  The automaton is carried warm across the
-// span: it starts cold (D = 0) once, at the span's first byte, which loses
-// only matches that start before it, and those belong to the previous warp.
+// A warp per 512-byte block.  A persistent grid (tpm::persistent_grid) of
+// 256-thread CTAs gives each warp one contiguous span of blocks, walked in
+// order; lane l loads bytes [16l, 16l + 16) of a block (one coalesced
+// 512-byte load per warp, the next block in flight to registers).  The
+// automaton is carried warm across the span: it starts cold (D = 0) once,
+// at the span's first byte, which loses only matches that start before it,
+// and those belong to the previous warp.
 //
 // - Alignment.  The table is loaded into shared memory shifted up by
 //   o = 32K - m bits, with ones in bits 0..o-1: the pattern behind o bytes
@@ -33,9 +35,9 @@
 //   Since (X & Y) << 1 | 1 == ((X << 1) | 1) & ((Y << 1) | 1), the state
 //   after t steps from any D_in is (D_in << t | (2^t - 1)) & M_t, M_t the
 //   state from all ones.  So M = M_16 is the lane's map, and the hit after
-//   step t is bit 31 of M_t (shifted into h, one funnel shift a byte, step
-//   t at bit 16 - t) AND bit 31 - t of D_in's top word: h & (D_in[K-1] >>
-//   15), bit-reversed into byte order.  One pass over the bytes.
+//   step t is bit 31 of M_t (in h, step t at bit 16 - t) AND bit 31 - t of
+//   D_in's top word: h & (D_in[K-1] >> 15), bit-reversed into byte order.
+//   One pass over the bytes.
 // - Lane scan.  Maps compose as (X, then Y over 16d bytes) -> (X << 16d |
 //   ones) & Y, and lane 0 folds in the state carried from the previous
 //   block, so an inclusive __shfl_up_sync scan gives each lane its state.
@@ -54,6 +56,40 @@
 //   4l..4l+3 (bit s & 3 of word s >> 2), one 16-byte store per lane, 512
 //   contiguous bytes per warp.
 //
+// Only the lane map's step and the source of the table differ between the
+// variants (template policies):
+//
+// - Step::kPerByte (K4, K10a; group_perbyte): M = ((M << 1) | 1) & B'[c]
+//   a byte, one funnel shift moving bit 31 of the top word into h.
+// - Step::kComposed (K9, STEP_PATH = "composed", m >= 5; group_composed):
+//   four bytes c0..c3 a step, by the same identity,
+//
+//       M = (M << 4 | 15) & (B'[c0] << 3 | 7) & (B'[c1] << 2 | 3)
+//                         & (B'[c2] << 1 | 1) & B'[c3],
+//
+//   each multiword shift one __funnelshift_l of words k-1 and k (all ones
+//   below word 0), the words walked upward so that each B' word is looked
+//   up once and kept for word k + 1.  The hit after byte b of the four is
+//   bit 31 of the top word after b + 1 steps: bit 30 - b of M's top word
+//   before the step AND, for each earlier byte b' <= b, bit 31 - b + b' of
+//   B'[K-1][c_b'].  With the table aligned to the top these are fixed bits
+//   for every m: (M[K-1] << 1) & B'[c0] & (B'[c1] >> 1 | 1 << 31) & ...
+//   holds the four hits in bits 31..28 (byte 0 at bit 31, ones shifted in
+//   where a byte is not yet reached), and one funnel shift moves them into
+//   h in the per-byte step's places.  The reference's run-time bit
+//   extracts (_ext4 at p = m - 5) have no counterpart.
+// - Lookup::kTable: the CTA loads b_table's K x 256 words.
+// - Lookup::kCompare (K9, pat_key, K = 1; lookup_compare): the wrapper
+//   passes the pattern's at most 32 distinct bytes and their masks, and
+//   the CTA's prologue builds the 256-word row from them once (B[c] = the
+//   mask of the distinct byte equal to c, else 0); the block loop is then
+//   the table's.  Compare-B was the TPU's answer to a slow dynamic_gather,
+//   kept by the reference as a measured negative (shift_and.py:286-293);
+//   Hopper's shared-memory lookup is the fast gather the TPU lacked, so
+//   the compares run 256 times per CTA, not once per byte.  The form this
+//   replaced (a thread per 512-byte block comparing each byte against the
+//   distinct bytes) took 1.10-1.61 ms on 256 MiB of English (PERF.md §6).
+//
 // Bound on the H100: the largest of the bytes (the region read once, 80 us
 // for 256 MiB at 3.35 TB/s; K10a also writes a nibble plane of the same
 // size), the 2K + 1 integer operations a byte (two per state word, one for
@@ -62,188 +98,32 @@
 // lane runs a byte permute, the lookup's address, K lookups of B (K * 1 KiB
 // per CTA; lanes reading different bytes that share a bank conflict) and
 // the step; each block's scan, shuffles and epilogue add more.  Per byte
-// the block loop issues 9.5 operations besides its lookups and shuffles at
-// K = 1, 12.4 at K = 2 and 25.75 at K = 8, where 17 are needed.  It is
-// issue-bound: on 256 MiB of English K4 runs at 0.58 of its bound at m = 16,
-// 0.44 at m = 64 and 0.66 at m = 256, K10a at 0.78, 0.77 and 0.63; at K = 8
-// the time is that of the loop's 25.75 operations a byte on the INT32 pipe
-// (kernel_ab.py).
-//
-// K9: kmp_scan_kernel<K, kEmitNib, kComposed, kCompareB>, the first form,
-// now only for the composed-4 step and the compare-B lookup.  One thread
-// owns the starts of one 512-byte block.  It starts the automaton cold at
-// the block's first byte and scans 512 + m - 1 bytes, so it finds every
-// match that starts in the block and none that starts before it.  The
-// count goes straight to bs[block], with no reduction across threads; under
-// kEmitNib the thread emits its starts, 16 to a 16-bit accumulator, stored
-// as one 16-byte write of four nibble words when the 16th is known.
-//
-// K9, composed-4 (kComposed, m >= 5): four steps folded into one per text
-// word.  Since (X & B) << 1 | 1 == ((X << 1) | 1) & ((B << 1) | 1),
-//
-//     D4 = (D << 4 | 15) & (B[c0] << 3 | 7) & (B[c1] << 2 | 3)
-//                        & (B[c2] << 1 | 1) & B[c3]
-//
-// with the multiword shifts carrying the high bits of word k-1 (of the old
-// D, and of each B word) into word k.  The hit after byte t-1 of the word
-// (t = 1..4 steps) is bit m-1 of the t-step state: bit m-1-t of the old D
-// AND, for each earlier byte b < t, bit m-t+b of B[c_b].  As in the
-// reference, these come as aligned nibbles: bits m-5..m-2 of D and bits
-// m-4+b..m-1+b of B[c_b] (neutral ones where t <= b), ANDed, so that bit
-// 3-b of the result is byte b's hit.  Block bases are 512-aligned, so the
-// steps align with words.
-//
-// K9, compare-B (kCompareB, K = 1): B[c] is computed instead of looked up,
-// as the OR over the pattern's distinct bytes d of (c == d ? mask_d : 0),
-// where bit j of mask_d is set when pattern[j] == d.  The at most 32 bytes
-// and masks arrive as two small arrays and sit in shared memory; bit 31
-// (m = 32) is an ordinary uint32 bit here, the reference's int32 wrap.
-// Compare-B combines with either step.  Every variant computes the same
-// function as K4 and K10a, bit for bit.  Neighbouring threads read 16-byte
-// groups and store nibble words 512 bytes apart, so neither coalesces.
+// the per-byte block loop issues 9.5 operations besides its lookups and
+// shuffles at K = 1, 12.4 at K = 2 and 25.75 at K = 8, where 17 are needed.
+// It is issue-bound: on 256 MiB of English K4 runs at 0.58 of its bound at
+// m = 16, 0.44 at m = 64 and 0.66 at m = 256, K10a at 0.78, 0.77 and 0.63;
+// at K = 8 the time is that of the loop's 25.75 operations a byte on the
+// INT32 pipe (kernel_ab.py).  The composed step takes six operations a
+// state word for four bytes where the per-byte step takes eight, and seven
+// for the four hits where it takes four: its block loop is 537 SASS
+// instructions at K = 8 against 576 (0.97x K4's time) and 175 against 173
+// at K = 1 (1.05x), so it gains only at large K (kernel_ab.py, one H100).
 
 #include "scan.cuh"
 
 namespace {
 
 using tpm::byte_at;
-using tpm::byte_of;
 using tpm::kBlockBytes;
-using tpm::load16;
 
-constexpr int kThreads = 128;  // kmp_scan_kernel
-constexpr int kWarpThreads = 256;  // kmp_warp_kernel
-constexpr int kWarps = kWarpThreads / 32;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr int kMaxStateWords = 8;
 constexpr int kMaxCompare = 32;  // distinct bytes of a pattern of m <= 32
 constexpr unsigned kFull = 0xffffffffu;
 
-// B[k][c]: from the table in shared memory, or under compare-B (K = 1) the
-// OR over the pattern's distinct bytes of (c == byte ? mask : 0).
-template <bool kCompareB>
-__device__ __forceinline__ uint32_t lookup(const uint32_t* sB,
-                                           const uint32_t* sCmp, int n_cmp,
-                                           int k, uint32_t c) {
-  if constexpr (!kCompareB) return sB[k * 256 + c];
-  uint32_t acc = 0u;
-  for (int d = 0; d < n_cmp; ++d)
-    acc |= c == sCmp[d] ? sCmp[kMaxCompare + d] : 0u;
-  return acc;
-}
-
-// Bits p..p+3 of the K-word state ws as a low nibble, for the positions the
-// composed step reads: m-5 <= p <= m-1, so the bits lie in words K-2 and
-// K-1 (bits past the top word read as 0).
-template <int K>
-__device__ __forceinline__ uint32_t ext4(const uint32_t (&ws)[K], int p) {
-  const uint64_t top = ((uint64_t)ws[K - 1] << 32) |
-                       (K >= 2 ? ws[K >= 2 ? K - 2 : 0] : 0u);
-  return (uint32_t)(top >> (p - 32 * (K - 2))) & 0xFu;
-}
-
-template <int K, bool kEmitNib, bool kComposed, bool kCompareB>
-__global__ void __launch_bounds__(kThreads)
-kmp_scan_kernel(const uint8_t* __restrict__ text, long long n_bytes,
-                long long n_lim, const uint32_t* __restrict__ B,
-                const uint32_t* __restrict__ cmp_bytes,
-                const uint32_t* __restrict__ cmp_masks, int n_cmp, int m,
-                int* __restrict__ nib, int* __restrict__ bs) {
-  __shared__ uint32_t sB[kCompareB ? 1 : K * 256];
-  __shared__ uint32_t sCmp[kCompareB ? 2 * kMaxCompare : 1];
-  if constexpr (kCompareB) {
-    for (int t = threadIdx.x; t < n_cmp; t += kThreads) {
-      sCmp[t] = cmp_bytes[t];
-      sCmp[kMaxCompare + t] = cmp_masks[t];
-    }
-  } else {
-    for (int t = threadIdx.x; t < K * 256; t += kThreads) sB[t] = B[t];
-  }
-  __syncthreads();
-
-  const long long blk = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (blk >= n_bytes / kBlockBytes) return;
-  const long long base = blk * kBlockBytes;
-  // Block-local starts j in [0, lim) are valid: base + j <= n_lim.
-  const long long room = n_lim - base + 1;
-  const int lim = room < 0 ? 0 : (room > kBlockBytes ? kBlockBytes : (int)room);
-  const int steps = kBlockBytes + m - 1;
-  const int hit_bit = (m - 1) & 31;
-
-  uint32_t D[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) D[k] = 0u;
-  int count = 0;
-  uint32_t group = 0u;  // kEmitNib: starts 16g..16g+15, bit j & 15
-  uint4* out = kEmitNib ? reinterpret_cast<uint4*>(nib + base / 4) : nullptr;
-  // The match ending at block-local byte e starts at j = e - (m - 1).
-  auto emit = [&](int e, uint32_t hit_bit_set) {
-    const int j = e - (m - 1);
-    const bool hit = hit_bit_set != 0u && j >= 0 && j < lim;
-    count += (int)hit;
-    if (kEmitNib && j >= 0 && j < kBlockBytes) {
-      group |= (uint32_t)hit << (j & 15);
-      if ((j & 15) == 15) {
-        out[j >> 4] = make_uint4(group & 0xFu, (group >> 4) & 0xFu,
-                                 (group >> 8) & 0xFu, group >> 12);
-        group = 0u;
-      }
-    }
-  };
-  for (int q = 0; q < steps; q += 16) {
-    const uint4 v = load16(text, base + q, n_bytes);
-    if constexpr (kComposed) {
-#pragma unroll
-      for (int w = 0; w < 4; ++w) {
-        uint32_t g[4][K];  // g[b][k] = B[k][byte b of the word]
-#pragma unroll
-        for (int b = 0; b < 4; ++b)
-#pragma unroll
-          for (int k = 0; k < K; ++k)
-            g[b][k] = lookup<kCompareB>(sB, sCmp, n_cmp, k, byte_of(v, 4 * w + b));
-        uint32_t nr = ext4<K>(D, m - 5);
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          uint32_t F = ext4<K>(g[b], m - 4 + b);
-          if (b > 0) F |= (0xFu << (4 - b)) & 0xFu;  // neutral where t <= b
-          nr &= F;
-        }
-        uint32_t nd[K];
-#pragma unroll
-        for (int k = 0; k < K; ++k) {
-          uint32_t H = 0xFFFFFFFFu;
-#pragma unroll
-          for (int b = 0; b < 4; ++b) {
-            const int s = 3 - b;
-            const uint32_t lo = k > 0 ? g[b][k > 0 ? k - 1 : 0] >> (32 - s)
-                                      : (1u << s) - 1u;
-            H &= s == 0 ? g[b][k] : (g[b][k] << s) | lo;
-          }
-          // The carry into word k is the OLD word k-1's top four bits.
-          const uint32_t in = k > 0 ? D[k > 0 ? k - 1 : 0] >> 28 : 15u;
-          nd[k] = ((D[k] << 4) | in) & H;
-        }
-#pragma unroll
-        for (int k = 0; k < K; ++k) D[k] = nd[k];
-#pragma unroll
-        for (int b = 0; b < 4; ++b) emit(q + 4 * w + b, (nr >> (3 - b)) & 1u);
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        const uint32_t c = byte_of(v, i);
-        uint32_t carry = 1u;
-#pragma unroll
-        for (int k = 0; k < K; ++k) {
-          const uint32_t old = D[k];
-          D[k] = ((old << 1) | carry) & lookup<kCompareB>(sB, sCmp, n_cmp, k, c);
-          carry = old >> 31;
-        }
-        emit(q + i, (D[K - 1] >> hit_bit) & 1u);
-      }
-    }
-  }
-  bs[blk] = count;
-}
+enum class Step { kPerByte, kComposed };
+enum class Lookup { kTable, kCompare };
 
 // out = x << n over K words, ones shifted in (n a multiple of 16, known at
 // compile time after unrolling).
@@ -265,17 +145,88 @@ __device__ __forceinline__ void shl_fill(const uint32_t (&x)[K], int n,
 template <int K>
 constexpr int kMaxScanSteps = K == 1 ? 1 : K == 2 ? 2 : K <= 4 ? 3 : 4;
 
-template <int K, bool kEmitNib>
-__global__ void __launch_bounds__(kWarpThreads)
+// The lane map M over the 16 bytes v from all ones, and h: the hit bit
+// (bit 31 of M's top word) after step t at bit 16 - t.  sB: the aligned
+// table, word k of byte c at sB[256k + c].
+template <int K, Step kStep>
+__device__ __forceinline__ uint32_t lane_map(const uint32_t* sB, const uint4& v,
+                                             uint32_t (&M)[K]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) M[k] = kFull;
+  uint32_t h = 0u;
+  if constexpr (kStep == Step::kPerByte) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const uint32_t* row = sB + byte_at(v, i);
+      uint32_t cin = 1u;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const uint32_t old = M[k];
+        M[k] = ((old << 1) | cin) & row[256 * k];
+        cin = old >> 31;
+      }
+      h = __funnelshift_l(M[K - 1], h, 1);  // (h << 1) | hit bit
+    }
+  } else {
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const uint32_t* r0 = sB + byte_at(v, 4 * w);
+      const uint32_t* r1 = sB + byte_at(v, 4 * w + 1);
+      const uint32_t* r2 = sB + byte_at(v, 4 * w + 2);
+      const uint32_t* r3 = sB + byte_at(v, 4 * w + 3);
+      const uint32_t top = M[K - 1];
+      // Word k-1 of M and of each byte's B' (all ones below word 0); after
+      // the loop g0..g3 hold the top words.
+      uint32_t pm = kFull, p0 = kFull, p1 = kFull, p2 = kFull;
+      uint32_t g0 = 0u, g1 = 0u, g2 = 0u, g3 = 0u;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        g0 = r0[256 * k];
+        g1 = r1[256 * k];
+        g2 = r2[256 * k];
+        g3 = r3[256 * k];
+        const uint32_t H = __funnelshift_l(p0, g0, 3) & __funnelshift_l(p1, g1, 2) &
+                           __funnelshift_l(p2, g2, 1) & g3;
+        const uint32_t old = M[k];
+        M[k] = __funnelshift_l(pm, old, 4) & H;
+        pm = old;
+        p0 = g0;
+        p1 = g1;
+        p2 = g2;
+      }
+      // Bit 31 - b: the hit after byte b of the four.
+      const uint32_t hits = (top << 1) & g0 & __funnelshift_r(g1, kFull, 1) &
+                            __funnelshift_r(g2, kFull, 2) & __funnelshift_r(g3, kFull, 3);
+      h = __funnelshift_l(hits, h, 4);  // (h << 4) | hits >> 28
+    }
+  }
+  return h;
+}
+
+template <int K, bool kEmitNib, Step kStep, Lookup kLookup>
+__global__ void __launch_bounds__(kThreads)
 kmp_warp_kernel(const uint8_t* __restrict__ text, long long n_bytes,
-                long long n_lim, const uint32_t* __restrict__ B, int m,
+                long long n_lim, const uint32_t* __restrict__ B,
+                const uint32_t* __restrict__ cmp_bytes,
+                const uint32_t* __restrict__ cmp_masks, int n_cmp, int m,
                 int* __restrict__ nib, int* __restrict__ bs) {
   // The table shifted up by o = 32K - m bits, ones below o.
   __shared__ uint32_t sB[K * 256];
   const int o = 32 * K - m;
   const uint32_t low = (1u << o) - 1u;
-  for (int t = threadIdx.x; t < K * 256; t += kWarpThreads)
-    sB[t] = o == 0 ? B[t] : (B[t] << o) | (t >= 256 ? B[t - 256] >> (32 - o) : low);
+  // Word t of the unshifted table: b_table's, or under compare-B (K = 1)
+  // the mask of the distinct byte equal to t, 0 if none is.
+  auto b_of = [&](int t) -> uint32_t {
+    if constexpr (kLookup == Lookup::kTable) {
+      return B[t];
+    } else {
+      uint32_t acc = 0u;
+      for (int d = 0; d < n_cmp; ++d) acc |= cmp_bytes[d] == (uint32_t)t ? cmp_masks[d] : 0u;
+      return acc;
+    }
+  };
+  for (int t = threadIdx.x; t < K * 256; t += kThreads)
+    sB[t] = o == 0 ? b_of(t) : (b_of(t) << o) | (t >= 256 ? b_of(t - 256) >> (32 - o) : low);
   __syncthreads();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -296,21 +247,7 @@ kmp_warp_kernel(const uint8_t* __restrict__ text, long long n_bytes,
   // at byte 16l + i); carry moves on to the block after.
   auto ends = [&](const uint4& v) -> uint32_t {
     uint32_t M[K];
-#pragma unroll
-    for (int k = 0; k < K; ++k) M[k] = kFull;
-    uint32_t h = 0u;
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const uint32_t* row = sB + byte_at(v, i);
-      uint32_t cin = 1u;
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const uint32_t old = M[k];
-        M[k] = ((old << 1) | cin) & row[256 * k];
-        cin = old >> 31;
-      }
-      h = __funnelshift_l(M[K - 1], h, 1);  // (h << 1) | hit bit
-    }
+    const uint32_t h = lane_map<K, kStep>(sB, v, M);
     uint32_t S[K], t[K];
     shl_fill<K>(carry, 16, t);
 #pragma unroll
@@ -393,68 +330,35 @@ struct Args {
   void* bs;
 };
 
-template <int K, bool kEmitNib, bool kComposed, bool kCompareB>
-void launch_k(const Args& a, unsigned grid, cudaStream_t stream) {
-  kmp_scan_kernel<K, kEmitNib, kComposed, kCompareB><<<grid, kThreads, 0, stream>>>(
-      (const uint8_t*)a.text, a.n_bytes, a.n_lim, (const uint32_t*)a.B,
-      (const uint32_t*)a.cmp_bytes, (const uint32_t*)a.cmp_masks, a.n_cmp,
-      a.m, (int*)a.nib, (int*)a.bs);
-}
-
-template <int K, bool kEmitNib>
+template <int K, bool kEmitNib, Step kStep, Lookup kLookup>
 int launch_warp(const Args& a, cudaStream_t stream) {
   const long long n_blocks = a.n_bytes / kBlockBytes;
   static tpm::GridCache ctas;
   unsigned grid = 0;
-  if (int err = tpm::persistent_grid((const void*)kmp_warp_kernel<K, kEmitNib>,
-                                     kWarpThreads, 0, (n_blocks + kWarps - 1) / kWarps,
-                                     &ctas, &grid))
+  if (int err = tpm::persistent_grid(
+          (const void*)kmp_warp_kernel<K, kEmitNib, kStep, kLookup>, kThreads, 0,
+          (n_blocks + kWarps - 1) / kWarps, &ctas, &grid))
     return err;
-  kmp_warp_kernel<K, kEmitNib><<<grid, kWarpThreads, 0, stream>>>(
-      (const uint8_t*)a.text, a.n_bytes, a.n_lim, (const uint32_t*)a.B, a.m,
+  kmp_warp_kernel<K, kEmitNib, kStep, kLookup><<<grid, kThreads, 0, stream>>>(
+      (const uint8_t*)a.text, a.n_bytes, a.n_lim, (const uint32_t*)a.B,
+      (const uint32_t*)a.cmp_bytes, (const uint32_t*)a.cmp_masks, a.n_cmp, a.m,
       (int*)a.nib, (int*)a.bs);
   return (int)cudaGetLastError();
 }
 
-// K4 / K10a: the warp kernel, K = 1..8.
-template <bool kEmitNib>
-int launch_perbyte(const Args& a, int K, cudaStream_t s) {
+// The table's lookup at K = 1..8.
+template <bool kEmitNib, Step kStep>
+int launch_table(const Args& a, int K, cudaStream_t s) {
   switch (K) {
-    case 1: return launch_warp<1, kEmitNib>(a, s);
-    case 2: return launch_warp<2, kEmitNib>(a, s);
-    case 3: return launch_warp<3, kEmitNib>(a, s);
-    case 4: return launch_warp<4, kEmitNib>(a, s);
-    case 5: return launch_warp<5, kEmitNib>(a, s);
-    case 6: return launch_warp<6, kEmitNib>(a, s);
-    case 7: return launch_warp<7, kEmitNib>(a, s);
-    default: return launch_warp<8, kEmitNib>(a, s);
+    case 1: return launch_warp<1, kEmitNib, kStep, Lookup::kTable>(a, s);
+    case 2: return launch_warp<2, kEmitNib, kStep, Lookup::kTable>(a, s);
+    case 3: return launch_warp<3, kEmitNib, kStep, Lookup::kTable>(a, s);
+    case 4: return launch_warp<4, kEmitNib, kStep, Lookup::kTable>(a, s);
+    case 5: return launch_warp<5, kEmitNib, kStep, Lookup::kTable>(a, s);
+    case 6: return launch_warp<6, kEmitNib, kStep, Lookup::kTable>(a, s);
+    case 7: return launch_warp<7, kEmitNib, kStep, Lookup::kTable>(a, s);
+    default: return launch_warp<8, kEmitNib, kStep, Lookup::kTable>(a, s);
   }
-}
-
-// K9: the composed step (K = 1..8, compare-B at K = 1 too), or compare-B on
-// the per-byte step.
-template <bool kEmitNib>
-int launch_k9(const Args& a, int K, int composed, cudaStream_t s) {
-  const long long n_blocks = a.n_bytes / kBlockBytes;
-  const unsigned grid = (unsigned)((n_blocks + kThreads - 1) / kThreads);
-  if (!composed) {
-    launch_k<1, kEmitNib, false, true>(a, grid, s);
-    return (int)cudaGetLastError();
-  }
-  switch (K) {
-    case 1:
-      if (a.n_cmp) launch_k<1, kEmitNib, true, true>(a, grid, s);
-      else launch_k<1, kEmitNib, true, false>(a, grid, s);
-      break;
-    case 2: launch_k<2, kEmitNib, true, false>(a, grid, s); break;
-    case 3: launch_k<3, kEmitNib, true, false>(a, grid, s); break;
-    case 4: launch_k<4, kEmitNib, true, false>(a, grid, s); break;
-    case 5: launch_k<5, kEmitNib, true, false>(a, grid, s); break;
-    case 6: launch_k<6, kEmitNib, true, false>(a, grid, s); break;
-    case 7: launch_k<7, kEmitNib, true, false>(a, grid, s); break;
-    default: launch_k<8, kEmitNib, true, false>(a, grid, s); break;
-  }
-  return (int)cudaGetLastError();
 }
 
 template <bool kEmitNib>
@@ -467,8 +371,11 @@ int launch(const Args& a, int K, int composed, void* stream) {
     return (int)cudaErrorInvalidValue;
   if (a.n_bytes == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (composed || a.n_cmp) return launch_k9<kEmitNib>(a, K, composed, s);
-  return launch_perbyte<kEmitNib>(a, K, s);
+  if (a.n_cmp)  // K9 compare-B, K = 1
+    return composed ? launch_warp<1, kEmitNib, Step::kComposed, Lookup::kCompare>(a, s)
+                    : launch_warp<1, kEmitNib, Step::kPerByte, Lookup::kCompare>(a, s);
+  return composed ? launch_table<kEmitNib, Step::kComposed>(a, K, s)  // K9
+                  : launch_table<kEmitNib, Step::kPerByte>(a, K, s);  // K4 / K10a
 }
 
 }  // namespace
@@ -478,9 +385,9 @@ extern "C" {
 // text: the kernel region, n_bytes a multiple of 512, 16-byte aligned.
 // B: uint32[K][256] with K = ceil(m / 32) in 1..8.  cmp_bytes, cmp_masks:
 // uint32[n_cmp], the pattern's distinct bytes and their B masks; n_cmp = 0
-// looks B up in the table, 1..32 (K = 1 only) runs compare-B.  composed:
-// 0 for the per-byte step, 1 for composed-4 (m >= 5).  bs must hold
-// n_bytes / 512 ints.
+// looks B up in the table, 1..32 (K = 1 only) builds it from them
+// (compare-B) and reads no B.  composed: 0 for the per-byte step, 1 for
+// composed-4 (m >= 5).  bs must hold n_bytes / 512 ints.
 int tpm_kmp_bsums(const void* text, long long n_bytes, long long n_lim,
                   const void* B, int K, int m, const void* cmp_bytes,
                   const void* cmp_masks, int n_cmp, int composed, void* bs,

@@ -10,18 +10,16 @@
 // M[a] its byte-occupancy mask (kernels/swar.py pattern_words).  Words at
 // or past n_words (the end of the kernel region) read as 0.
 //
-// Two designs share this file.  The scans, K1 and K11a (the probe screen,
-// one template), the naive verify K2/K3 and the screened verify K7/K8 (one
-// template: the screen's probe pair is an argument), are persistent tiled
-// kernels: a grid of as many CTAs as the card holds at once walks 16 KiB
-// tiles of the region, each tile and its halo prefetched to registers while
-// the one before it is scanned, then stored to one of two shared-memory
-// buffers, and one warp scans each 512-byte output block out of shared
-// memory (scan_tiles).  K11d, the gather-verify of listed groups, runs one
-// thread per text word and 128 threads per CUDA block walking the eight
-// 512-byte blocks of a 4 KiB group; a thread reads word w + k straight from
-// global memory, and the neighbouring threads of a warp read neighbouring
-// words.
+// Every kernel here is a persistent tiled scan: a grid of as many CTAs as
+// the card holds at once walks tiles of the region, each tile and its halo
+// prefetched to registers while the one before it is scanned, then stored
+// to one of two shared-memory buffers, and one warp scans each 512-byte
+// output block out of shared memory (scan_tiles).  The scans, K1 and K11a
+// (the probe screen, one template), the naive verify K2/K3 and the screened
+// verify K7/K8 (one template: the screen's probe pair is an argument), walk
+// contiguous 16 KiB tiles.  K11d, the gather-verify of listed 4 KiB groups,
+// runs K2's verify (verify_block) on gathered tiles: tile i is the group
+// g8[i] and the halo after it.
 //
 // Block sums come out in byte order: bs[b] covers bytes 512b..512b+511.
 // The JAX reference's tile-major reorder (swar.py _run) has no counterpart.
@@ -32,7 +30,6 @@ namespace {
 
 using tpm::kBlockBytes;
 using tpm::kBlockWords;
-using tpm::load_word;
 using tpm::persistent_grid;
 
 constexpr int kGroupWords = 8 * kBlockWords;  // one 4 KiB group of K11d
@@ -44,7 +41,7 @@ struct Probes {
 };
 
 // ---------------------------------------------------------------------------
-// Persistent tiled scans (K1-K3, K7, K8, K11a)
+// Persistent tiled scans
 // ---------------------------------------------------------------------------
 
 constexpr int kTileBlocks = 32;                        // output blocks per tile
@@ -52,16 +49,19 @@ constexpr int kTileWords = kTileBlocks * kBlockWords;  // 16 KiB of text
 constexpr int kScanWarps = 8;
 constexpr int kScanThreads = 32 * kScanWarps;
 constexpr int kMaxPatternWords = kBlockWords;  // nw <= 128, i.e. m <= 509
-// One tile buffer: up to 3 lead words (the region may start anywhere in its
-// 16-byte line), the tile, and a halo of up to kMaxPatternWords - 1 words,
-// in whole 16-byte chunks.
-constexpr int kBufWords = kTileWords + kMaxPatternWords + 4;
+// One buffer of a tile of kWords words: up to 3 lead words (the region may
+// start anywhere in its 16-byte line), the tile, and a halo of up to
+// kMaxPatternWords - 1 words, in whole 16-byte chunks.
+template <int kWords>
+constexpr int kBufWordsOf = kWords + kMaxPatternWords + 4;
+constexpr int kBufWords = kBufWordsOf<kTileWords>;       // contiguous tiles
+constexpr int kGroupBufWords = kBufWordsOf<kGroupWords>;  // K11d's groups
 constexpr size_t kTileSmem = 2 * kBufWords * sizeof(uint32_t);  // two buffers
-// 16-byte chunks of a tile buffer that each thread copies.
-constexpr int kChunks = (kBufWords / 4 + kScanThreads - 1) / kScanThreads;
+constexpr size_t kGroupSmem = 2 * kGroupBufWords * sizeof(uint32_t);
+constexpr size_t kPatternSmem = 8 * kMaxPatternWords * sizeof(uint32_t);
 // Within the 48 KB a launch gets without cudaFuncSetAttribute, the
 // pattern's staged words included (naive_kernel).
-static_assert(kTileSmem + 8 * kMaxPatternWords * sizeof(uint32_t) <= 48 * 1024,
+static_assert(kTileSmem + kPatternSmem <= 48 * 1024,
               "tile buffers past 48 KB need cudaFuncAttributeMaxDynamicSharedMemorySize");
 
 // Tiles of a region of n_words (a multiple of 128); the last may be ragged.
@@ -69,35 +69,40 @@ __host__ __device__ __forceinline__ long long tiles_of(long long n_words) {
   return (n_words / kBlockWords + kTileBlocks - 1) / kTileBlocks;
 }
 
-// Walks the CTA's tiles t = blockIdx.x, blockIdx.x + gridDim.x, ... through
-// two buffers in shared memory s.  fn(base, t) scans tile t, in which
-// s[base + j] is region word t * kTileWords + j for j in [0, kTileWords +
-// halo), while the next tile's words are in flight to registers (r: each
-// thread's 16-byte chunks of the buffer, read with ld.global.nc): they go
-// to the other buffer after fn, and one barrier per tile orders both
-// buffers.  Copies start at the region's 16-byte line (the lead words
-// before its first word share that line, so they lie in its allocation);
-// words at or past n_words read as 0 and are never read from memory.
-// Every thread of the CTA calls fn once per tile; fn's warps never
-// synchronise with each other.
-template <class Fn>
+// Walks the CTA's tiles t = blockIdx.x, blockIdx.x + gridDim.x, ... <
+// n_tiles through two buffers in shared memory s.  Tile t is the kWords
+// region words from first_of(t) (a multiple of 4) and the halo after them,
+// or, where first_of(t) is negative, kWords + halo zeros read from nowhere.
+// fn(base, t, first_of(t)) scans tile t, in which s[base + j] is region
+// word first_of(t) + j for j in [0, kWords + halo), while the next tile's
+// words are in flight to registers (r: each thread's 16-byte chunks of the
+// buffer, read with ld.global.nc): they go to the other buffer after fn,
+// and one barrier per tile orders both buffers.  Copies start at the
+// region's 16-byte line (the lead words before its first word share that
+// line, so they lie in its allocation); words at or past n_words read as 0
+// and are never read from memory.  Every thread of the CTA calls fn once
+// per tile; fn's warps never synchronise with each other.
+template <int kWords, class First, class Fn>
 __device__ __forceinline__ void scan_tiles(uint32_t* s, const uint32_t* words,
-                                           long long n_words, int halo, Fn&& fn) {
-  const long long n_tiles = tiles_of(n_words);
+                                           long long n_words, long long n_tiles,
+                                           int halo, First&& first_of, Fn&& fn) {
+  constexpr int kBuf = kBufWordsOf<kWords>;
+  constexpr int kChunks = (kBuf / 4 + kScanThreads - 1) / kScanThreads;
   const int lead = (int)((reinterpret_cast<uintptr_t>(words) >> 2) & 3);
-  const int n_load = (lead + kTileWords + halo + 3) & ~3;
+  const int n_load = (lead + kWords + halo + 3) & ~3;
   uint4 r[kChunks];
-  auto fetch = [&](long long t) {
-    const long long first = t * kTileWords - lead;  // a 16-byte line
+  auto fetch = [&](long long f) {
+    const long long first = f - lead;  // a 16-byte line
 #pragma unroll
     for (int j = 0; j < kChunks; ++j) {
       const int c = 4 * (threadIdx.x + j * kScanThreads);
-      const long long left = n_words - (first + c);
+      const long long left = f < 0 ? 0 : n_words - (first + c);
       const uint32_t* src = words + (first + c);
       if (c >= n_load) continue;
       if (left >= 4)
         r[j] = __ldg(reinterpret_cast<const uint4*>(src));
-      else  // the region's end: only when it starts off its 16-byte line
+      else  // the region's end (a whole chunk past it unless the region
+            // starts off its 16-byte line), or a tile that reads nothing
         r[j] = make_uint4(left > 0 ? __ldg(src) : 0u, left > 1 ? __ldg(src + 1) : 0u,
                           left > 2 ? __ldg(src + 2) : 0u, 0u);
     }
@@ -110,16 +115,27 @@ __device__ __forceinline__ void scan_tiles(uint32_t* s, const uint32_t* words,
     }
   };
   long long t = blockIdx.x;  // the grid never exceeds n_tiles
-  fetch(t);
+  long long f = first_of(t);
+  fetch(f);
   stash(s);
   __syncthreads();
   for (int i = 0; t < n_tiles; t += gridDim.x, ++i) {
     const bool more = t + gridDim.x < n_tiles;
-    if (more) fetch(t + gridDim.x);
-    fn((i & 1) * kBufWords + lead, t);
-    if (more) stash(s + ((i + 1) & 1) * kBufWords);
+    const long long f_next = more ? first_of(t + gridDim.x) : 0;
+    if (more) fetch(f_next);
+    fn((i & 1) * kBuf + lead, t, f);
+    if (more) stash(s + ((i + 1) & 1) * kBuf);
     __syncthreads();
+    f = f_next;
   }
+}
+
+// The contiguous tiles: tile t is region words t * kTileWords on.
+template <class Fn>
+__device__ __forceinline__ void scan_region(uint32_t* s, const uint32_t* words,
+                                            long long n_words, int halo, Fn&& fn) {
+  scan_tiles<kTileWords>(s, words, n_words, tiles_of(n_words), halo,
+                         [](long long t) { return t * kTileWords; }, fn);
 }
 
 // Probe screen.  kNibSums = false replaces kernels/swar.py::_screen_cand_kernel
@@ -178,7 +194,7 @@ screen_cand_kernel(const uint32_t* __restrict__ words, long long n_words,
   const long long n_blocks = n_words / kBlockWords;
   const long long wlim = n_lim >> 2;  // 4w <= n_lim  <=>  w <= floor(n_lim / 4)
   int sum = 0;  // K11a: lane 0's blocks, over the CTA's tiles
-  scan_tiles(smem, words, n_words, halo, [=, &sum](int base, long long t) {
+  scan_region(smem, words, n_words, halo, [=, &sum](int base, long long t, long long) {
 #pragma unroll
     for (int i = 0; i < kTileBlocks / kScanWarps; ++i) {
       const int lb = warp + i * kScanWarps;
@@ -261,6 +277,105 @@ screen_cand_kernel(const uint32_t* __restrict__ words, long long n_words,
 // block-sum verify 27% slower on English and gained nothing on the dense
 // text (kernel_ab.py, one H100).  Lane L owns words L + 32q of its warp's
 // block, so each nibble store is one contiguous 128-byte line per warp.
+//
+// The verify of one block (verify_block) is also K11d's, on its gathered
+// tiles (naive_groups_kernel below).
+
+// The screen of the exact verify: per alignment two word indices and their
+// pattern and mask words.
+struct Screen {
+  int k[4][2];
+  uint32_t p[4][2], m[4][2];
+};
+
+// Stages P[4][nw], then M[4][nw], at pm (all of the CTA's threads) and
+// returns the screen: pr's probe words, or where pr's are negative (K2/K3)
+// alignment a's first and last whole words (word 0 twice if none is
+// whole), as K1's 'static' probes: a start that fails either fails its
+// chain, and two words far apart rarely both match where the pattern does
+// not.
+__device__ __forceinline__ Screen stage_screen(const uint32_t* __restrict__ P,
+                                               const uint32_t* __restrict__ M,
+                                               int nw, const Probes& pr, uint32_t* pm) {
+  for (int t = threadIdx.x; t < 4 * nw; t += kScanThreads) {
+    pm[t] = P[t];
+    pm[4 * nw + t] = M[t];
+  }
+  __syncthreads();
+  Screen sc;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    if (pr.k[a][0] >= 0) {
+      sc.k[a][0] = pr.k[a][0];
+      sc.k[a][1] = pr.k[a][1];
+    } else {
+      int first = -1, last = 0;
+      for (int k = 0; k < nw; ++k)
+        if (pm[4 * nw + a * nw + k] == 0xFFFFFFFFu) {
+          first = first < 0 ? k : first;
+          last = k;
+        }
+      sc.k[a][0] = first < 0 ? 0 : first;
+      sc.k[a][1] = last;
+    }
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      sc.p[a][s] = pm[a * nw + sc.k[a][s]];
+      sc.m[a][s] = pm[4 * nw + a * nw + sc.k[a][s]];
+    }
+  }
+  return sc;
+}
+
+// One warp's exact verify of a 512-byte block whose word i is smem[x -
+// lane + i] (the pattern's nw - 1 words after it too): lane L takes words
+// L + 32q.  Starts at bytes 0..rel of the block pass the clamp (rel =
+// n_lim - the block's first byte).  Under kEmitNib stores word i's nibble
+// at nib_row[i]; returns the block's count in every lane.
+template <bool kEmitNib>
+__device__ __forceinline__ int verify_block(const uint32_t* smem, int x, const Screen& sc,
+                                            const uint32_t* pm, int nw, long long rel,
+                                            int lane, int* __restrict__ nib_row) {
+  // The screen, branch-free: does any alignment of the word pass it?
+  bool hit[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    hit[q] = false;
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const uint32_t d = ((smem[x + 32 * q + sc.k[a][0]] & sc.m[a][0]) ^ sc.p[a][0]) |
+                         ((smem[x + 32 * q + sc.k[a][1]] & sc.m[a][1]) ^ sc.p[a][1]);
+      hit[q] |= d == 0u;
+    }
+  }
+  int bits[4] = {0, 0, 0, 0};
+  int sum = 0;
+  // The chains, each to its first mismatch, of the words with a hit; the
+  // warp takes this path only when one of its lanes has one.
+  if (__any_sync(0xffffffffu, hit[0] | hit[1] | hit[2] | hit[3])) {
+    const int relc = rel < 0 ? -1 : (int)(rel > kBlockBytes ? kBlockBytes : rel);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (!hit[q]) continue;
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        bool ok = true;
+        for (int k = 0; ok && k < nw; ++k)
+          ok = (smem[x + 32 * q + k] & pm[4 * nw + a * nw + k]) == pm[a * nw + k];
+        bits[q] |= (int)ok << a;
+      }
+      int keep = relc - 4 * (lane + 32 * q) + 1;
+      keep = keep < 0 ? 0 : (keep > 4 ? 4 : keep);
+      bits[q] &= (1 << keep) - 1;
+      sum += __popc(bits[q]);
+    }
+  }
+  if (kEmitNib)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) nib_row[lane + 32 * q] = bits[q];
+  return __reduce_add_sync(0xffffffffu, sum);
+}
+
 template <bool kEmitNib>
 __global__ void __launch_bounds__(kScanThreads)
 naive_kernel(const uint32_t* __restrict__ words, long long n_words,
@@ -269,189 +384,83 @@ naive_kernel(const uint32_t* __restrict__ words, long long n_words,
              int* __restrict__ nib, int* __restrict__ bs) {
   extern __shared__ uint32_t smem[];
   uint32_t* pm = smem + 2 * kBufWords;  // P[4][nw], then M[4][nw]
-  for (int t = threadIdx.x; t < 4 * nw; t += kScanThreads) {
-    pm[t] = P[t];
-    pm[4 * nw + t] = M[t];
-  }
-  __syncthreads();
-  // K2/K3 screen alignment a on its first and last whole words (word 0
-  // twice if none is whole), as K1's 'static' probes: a start that fails
-  // either fails its chain, and two words far apart rarely both match
-  // where the pattern does not.
-  int ks[4][2];
-  uint32_t ps[4][2], ms[4][2];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    if (pr.k[a][0] >= 0) {
-      ks[a][0] = pr.k[a][0];
-      ks[a][1] = pr.k[a][1];
-    } else {
-      int first = -1, last = 0;
-      for (int k = 0; k < nw; ++k)
-        if (pm[4 * nw + a * nw + k] == 0xFFFFFFFFu) {
-          first = first < 0 ? k : first;
-          last = k;
-        }
-      ks[a][0] = first < 0 ? 0 : first;
-      ks[a][1] = last;
-    }
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      ps[a][s] = pm[a * nw + ks[a][s]];
-      ms[a][s] = pm[4 * nw + a * nw + ks[a][s]];
-    }
-  }
+  const Screen sc = stage_screen(P, M, nw, pr, pm);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long n_blocks = n_words / kBlockWords;
-  scan_tiles(smem, words, n_words, nw - 1, [=](int base, long long t) {
+  scan_region(smem, words, n_words, nw - 1, [=](int base, long long t, long long) {
 #pragma unroll
     for (int i = 0; i < kTileBlocks / kScanWarps; ++i) {
       const int lb = warp + i * kScanWarps;
       const long long b = t * kTileBlocks + lb;
       if (b >= n_blocks) break;  // the ragged last tile
-      const int x = base + lb * kBlockWords + lane;
-      // The screen, branch-free: does any alignment of the word pass it?
-      bool hit[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        hit[q] = false;
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          const uint32_t d = ((smem[x + 32 * q + ks[a][0]] & ms[a][0]) ^ ps[a][0]) |
-                             ((smem[x + 32 * q + ks[a][1]] & ms[a][1]) ^ ps[a][1]);
-          hit[q] |= d == 0u;
-        }
-      }
-      int bits[4] = {0, 0, 0, 0};
-      int sum = 0;
-      // The chains, each to its first mismatch, of the words with a hit;
-      // the warp takes this path only when one of its lanes has one.
-      if (__any_sync(0xffffffffu, hit[0] | hit[1] | hit[2] | hit[3])) {
-        // Starts at bytes 0..rel of the block pass the clamp.
-        const long long rel = n_lim - (long long)kBlockBytes * b;
-        const int relc = rel < 0 ? -1 : (int)(rel > kBlockBytes ? kBlockBytes : rel);
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          if (!hit[q]) continue;
-#pragma unroll
-          for (int a = 0; a < 4; ++a) {
-            bool ok = true;
-            for (int k = 0; ok && k < nw; ++k)
-              ok = (smem[x + 32 * q + k] & pm[4 * nw + a * nw + k]) == pm[a * nw + k];
-            bits[q] |= (int)ok << a;
-          }
-          int keep = relc - 4 * (lane + 32 * q) + 1;
-          keep = keep < 0 ? 0 : (keep > 4 ? 4 : keep);
-          bits[q] &= (1 << keep) - 1;
-          sum += __popc(bits[q]);
-        }
-      }
-      if (kEmitNib)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) nib[b * kBlockWords + lane + 32 * q] = bits[q];
-      sum = __reduce_add_sync(0xffffffffu, sum);
+      const int sum = verify_block<kEmitNib>(smem, base + lb * kBlockWords + lane, sc, pm, nw,
+                                             n_lim - (long long)kBlockBytes * b, lane,
+                                             nib + b * kBlockWords);
       if (lane == 0) bs[b] = sum;
     }
   });
 }
 
-// P[4][nw] then M[4][nw] into shared memory (2 * 4 * nw words).
-__device__ __forceinline__ void stage_pattern(const uint32_t* __restrict__ P,
-                                              const uint32_t* __restrict__ M,
-                                              int nw, uint32_t* pm) {
-  for (int t = threadIdx.x; t < 4 * nw; t += kBlockWords) {
-    pm[t] = P[t];
-    pm[4 * nw + t] = M[t];
-  }
-  __syncthreads();
-}
-
-// The AND chain of alignment a at word w, stopping at its first mismatch.
-__device__ __forceinline__ bool verify_alignment(
-    const uint32_t* __restrict__ words, long long w, long long n_words,
-    const uint32_t* pm, int nw, int a) {
-  const uint32_t* pa = pm + a * nw;
-  const uint32_t* ma = pm + 4 * nw + a * nw;
-  bool ok = true;
-  for (int k = 0; k < nw && ok; ++k) {
-    const uint32_t mk = ma[k];
-    if (mk != 0u) ok = (load_word(words, w + k, n_words) & mk) == pa[k];
-  }
-  return ok;
-}
-
-// Clears bit a of a word's nibble unless 4w + a <= n_lim (validity per
-// ALIGNMENT, as the reference's _validity_nibble), stores the nibble at
-// *nib_at, and writes the popcount of the CUDA block's 128 nibbles (its
-// exact match count) to *bs_at.  Returns that popcount in thread 0 (0 in
-// the others).  The partial sums sit in shared memory, so a block that
-// emits again passes a __syncthreads() first.
-__device__ __forceinline__ int emit_nibble(int bits, long long w, long long n_lim,
-                                           int* nib_at, int* bs_at) {
-  long long keep = n_lim - 4 * w + 1;
-  keep = keep < 0 ? 0 : (keep > 4 ? 4 : keep);
-  bits &= (1 << (int)keep) - 1;
-  *nib_at = bits;
-
-  int c = __popc(bits);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) c += __shfl_down_sync(0xffffffffu, c, off);
-  __shared__ int warp_sums[kBlockWords / 32];
-  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = c;
-  __syncthreads();
-  int s = 0;
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int i = 0; i < kBlockWords / 32; ++i) s += warp_sums[i];
-    *bs_at = s;
-  }
-  return s;
-}
-
 // Replaces exp/proto_kernels.py::_gv_kernel (K11d).
 //
-// Gather-verify over listed 4 KiB groups: CUDA block i takes group id
-// g8[i] and runs K2's exact verify (verify_alignment, all four alignments)
-// on the group's 8 rows of 128 words, one row per pass of its 128 threads,
-// one thread per word.  Row r of the group is nib[i][r][*], its popcount
-// bsr[8i + r], and thread 0 adds the group's count to *total (zeroed by the
-// C entry).  The reference gathers each group and its successor's first
-// row through scalar-prefetched block specs; here a group's words are read
-// straight from the text, so the halo is simply the words that follow.
-// Validity is per alignment from the UNCLAMPED id: the word at (r, c) is
-// w = g8 * 1024 + 128 r + c, its starts 4w + a are kept when <= n_lim.  An
-// id outside [0, n_words / 1024) (the fill id n_words / 1024 among them)
-// reads no word and yields zero rows; words past the text read as 0, which
-// no start <= n_lim <= 4 n_words - m reaches.
+// Gather-verify over listed 4 KiB groups: K2's verify (verify_block, its
+// own screen words) on gathered tiles.  The persistent grid walks the id
+// list; tile i is group g8[i], its 8 blocks and the nw - 1 halo words that
+// follow (read as zeros past n_words), staged through scan_tiles' two
+// buffers with the next listed group in flight to registers.  Warp r
+// verifies row r of every group: row r of the group is nib[i][r][*], its
+// popcount bsr[8i + r], and lane 0 of each warp keeps its rows' sum over
+// the CTA's groups and adds it to *total (zeroed by the C entry) once.
+// The reference gathers each group and its successor's first row through
+// scalar-prefetched block specs; here the halo is simply the words that
+// follow.  Validity is per alignment from the UNCLAMPED id, as K2's of
+// block 8 g8[i] + r: a start at byte 4096 g8[i] + 512 r + 4c + a is kept
+// when <= n_lim.  An id outside [0, n_words / 1024) (the fill id n_words /
+// 1024 among them) reads no word and yields zero rows.  The ids need not be
+// ascending or distinct.
 //
 // Bound on the H100: the listed groups read once (4 KiB each, plus the
 // halo) and their nibble planes written once (4 KiB each): about 11 us for
-// 4096 groups at 3.35 TB/s.  A CUDA block per group keeps the gather
-// coalesced: each row is one 512-byte line per warp group, like K2's.
-__global__ void __launch_bounds__(kBlockWords)
-gather_verify_kernel(const uint32_t* __restrict__ words, long long n_words,
-                     long long n_lim, const int* __restrict__ g8,
-                     const uint32_t* __restrict__ P,
-                     const uint32_t* __restrict__ M, int nw,
-                     int* __restrict__ nib, int* __restrict__ bsr,
-                     int* __restrict__ total) {
-  extern __shared__ uint32_t pm[];
-  stage_pattern(P, M, nw, pm);
-  const long long g = g8[blockIdx.x];
-  const bool listed = g >= 0 && g < n_words / kGroupWords;
-  int sum = 0;
-  for (int r = 0; r < 8; ++r) {
-    const long long w = g * kGroupWords + r * kBlockWords + threadIdx.x;
-    const long long row = (long long)blockIdx.x * 8 + r;
-    int bits = 0;
-    if (listed)
-      for (int a = 0; a < 4; ++a)
-        bits |= (int)verify_alignment(words, w, n_words, pm, nw, a) << a;
-    sum += emit_nibble(bits, w, n_lim, nib + row * kBlockWords + threadIdx.x,
-                             bsr + row);
-    __syncthreads();  // emit_nibble's partial sums are reused by the next row
-  }
-  if (threadIdx.x == 0 && sum != 0) atomicAdd(total, sum);
+// 4096 groups at 3.35 TB/s.  A call lists a few thousand groups, a few per
+// CTA, so the latency of the id, the group's load and the verify weighs as
+// much as the bytes: 0.58 of the bound at 4096 ids (2781 listed) on 256 MiB
+// of English, 0.37 at 1024 (kernel_ab.py, one H100).
+__global__ void __launch_bounds__(kScanThreads)
+naive_groups_kernel(const uint32_t* __restrict__ words, long long n_words,
+                    long long n_lim, const int* __restrict__ g8, long long n_ids,
+                    const uint32_t* __restrict__ P, const uint32_t* __restrict__ M,
+                    int nw, Probes pr, int* __restrict__ nib, int* __restrict__ bsr,
+                    int* __restrict__ total) {
+  extern __shared__ uint32_t smem[];
+  uint32_t* pm = smem + 2 * kGroupBufWords;  // P[4][nw], then M[4][nw]
+  const Screen sc = stage_screen(P, M, nw, pr, pm);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long n_groups = n_words / kGroupWords;
+  int sum = 0;  // lane 0: its warp's rows, over the CTA's groups
+  auto first_of = [=](long long i) -> long long {
+    const long long g = __ldg(g8 + i);
+    return g >= 0 && g < n_groups ? g * kGroupWords : -1;
+  };
+  scan_tiles<kGroupWords>(
+      smem, words, n_words, n_ids, nw - 1, first_of,
+      [=, &sum](int base, long long i, long long first) {
+        const long long row = 8 * i + warp;
+        int* nib_row = nib + row * kBlockWords;
+        int count = 0;
+        if (first >= 0) {  // the warp's block of a listed group
+          const long long b = first / kBlockWords + warp;
+          count = verify_block<true>(smem, base + warp * kBlockWords + lane, sc, pm, nw,
+                                     n_lim - (long long)kBlockBytes * b, lane, nib_row);
+        } else {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) nib_row[lane + 32 * q] = 0;
+        }
+        if (lane == 0) {
+          bsr[row] = count;
+          sum += count;
+        }
+      });
+  if (lane == 0 && sum != 0) atomicAdd(total, sum);
 }
 
 int check_args(long long n_words, int nw) {
@@ -507,7 +516,7 @@ int launch_naive(const void* words, long long n_words, long long n_lim,
   if (nw > kMaxPatternWords) return (int)cudaErrorInvalidValue;
   if (n_words == 0) return 0;
   // The tile buffers, then the pattern's 8 nw words (room for the largest).
-  const size_t smem = kTileSmem + 8 * kMaxPatternWords * sizeof(uint32_t);
+  const size_t smem = kTileSmem + kPatternSmem;
   static tpm::GridCache ctas;
   unsigned grid = 0;
   if (int err = persistent_grid((const void*)naive_kernel<kEmitNib>, kScanThreads,
@@ -587,21 +596,27 @@ int tpm_screen_cand_nibsums(const void* words, long long n_words,
 }
 
 // K11d: words holds whole 4 KiB groups (n_words a multiple of 1024), g8 the
-// n_ids int32 group ids.  nib must hold n_ids * 1024 ints, bsr n_ids * 8
-// and total one int, which is zeroed here.
+// n_ids int32 group ids, nw at most 128.  nib must hold n_ids * 1024 ints,
+// bsr n_ids * 8 and total one int, which is zeroed here.
 int tpm_gather_verify(const void* words, long long n_words, long long n_lim,
                       const void* g8, long long n_ids, const void* P,
                       const void* M, int nw, void* nib, void* bsr, void* total,
                       void* stream) {
-  if (n_words % kGroupWords != 0 || nw < 1 || n_ids < 0 || n_ids > 0x7fffffffLL)
+  if (n_words % kGroupWords != 0 || nw < 1 || nw > kMaxPatternWords || n_ids < 0 ||
+      n_ids > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (cudaError_t err = cudaMemsetAsync(total, 0, sizeof(int), s)) return (int)err;
   if (n_ids == 0) return 0;
-  const size_t smem = 2 * 4 * (size_t)nw * sizeof(uint32_t);
-  gather_verify_kernel<<<(unsigned)n_ids, kBlockWords, smem, s>>>(
-      (const uint32_t*)words, n_words, n_lim, (const int*)g8,
-      (const uint32_t*)P, (const uint32_t*)M, nw, (int*)nib, (int*)bsr,
+  const size_t smem = kGroupSmem + kPatternSmem;
+  static tpm::GridCache ctas;
+  unsigned grid = 0;
+  if (int err = persistent_grid((const void*)naive_groups_kernel, kScanThreads, smem,
+                                n_ids, &ctas, &grid))
+    return err;
+  naive_groups_kernel<<<grid, kScanThreads, smem, s>>>(
+      (const uint32_t*)words, n_words, n_lim, (const int*)g8, n_ids,
+      (const uint32_t*)P, (const uint32_t*)M, nw, kOwnScreen, (int*)nib, (int*)bsr,
       (int*)total);
   return (int)cudaGetLastError();
 }

@@ -9,12 +9,12 @@ hold up to ``MAX_SHIFT_AND_PATTERN`` bytes.
 
 Two wrappers over ``csrc/shift_and.cu``: K4 ``kmp_bsums``, the automaton's
 match starts counted per 512-byte block, and K10a ``kmp_nib``, the same
-counts plus the nibble plane of the starts (``emission='nib'``), both on
-``kmp_warp_kernel`` (a warp per block, the automaton carried across each
-warp's span of blocks).  Each also runs K9, the reference's opt-in
-automaton variants, on ``kmp_scan_kernel`` (a thread per block): the
-composed-4 step (``STEP_PATH = "composed"``) and the compare-B lookup
-(``pat_key``, one state word).  Each has a plain
+counts plus the nibble plane of the starts (``emission='nib'``).  Each
+also runs K9, the reference's opt-in automaton variants: the composed-4
+step (``STEP_PATH = "composed"``) and the compare-B lookup (``pat_key``,
+one state word).  Every variant runs on ``kmp_warp_kernel`` (a warp per
+block, the automaton carried across each warp's span of blocks), the step
+and the table's source its template policies.  Each has a plain
 PyTorch version in this module and launch counters (``.launches`` for
 every launch, ``.k9_launches`` per K9 variant).  A wrapper runs the plain
 version for a CPU tensor and launches the kernel for a CUDA tensor; there

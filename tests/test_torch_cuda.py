@@ -699,26 +699,76 @@ def test_kmp_scans_bit_exact_on_ragged_regions(length, m, where, cuda_device, mo
 
 
 def test_kmp_launches_name_their_kernel(cuda_device, monkeypatch):
-    """On the card K4 and K10a run ``kmp_warp_kernel``, and K9 (composed
-    step, compare-B) ``kmp_scan_kernel``: the kernel names torch.profiler
-    records for one call each."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """On the card K4, K10a and every K9 variant (composed step, compare-B
+    per byte and composed) run ``kmp_warp_kernel``: the kernel names
+    torch.profiler records for one call each."""
     pat = b"quick brown fox "
     words, limit, _, _ = _region(TILE, pat, cuda_device)
     bt = torch.from_numpy(shift_and.b_table(_u8(pat))).to(cuda_device)
-    for path, key, kernel in (("perbyte", None, "kmp_warp_kernel"),
-                              ("composed", None, "kmp_scan_kernel"),
-                              ("perbyte", pat, "kmp_scan_kernel")):
+    for path, key in (("perbyte", None), ("composed", None), ("perbyte", pat),
+                      ("composed", pat)):
         monkeypatch.setattr(shift_and, "STEP_PATH", path)
         for fn in (shift_and.kmp_bsums, shift_and.kmp_nib):
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                fn(words, limit, bt, len(pat), pat_key=key)
-                torch.cuda.synchronize()
-            names = {e.name for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA and "kmp_" in e.name}
-            assert names and all(kernel in x for x in names), (fn.__name__, path, names)
+            names = _kernel_names(lambda: fn(words, limit, bt, len(pat), pat_key=key), "kmp_")
+            assert names and all("kmp_warp_kernel" in x for x in names), (
+                fn.__name__, path, names)
+
+
+def test_gather_verify_names_its_kernel(cuda_device):
+    """On the card K11d runs ``naive_groups_kernel``, K2's verify on
+    gathered tiles (with a memset of the total beside it)."""
+    pat = b"quick brown fox "
+    words, limit, P, M = _region(2 * TILE, pat, cuda_device)
+    g8 = torch.tensor([0, 3, 3, 200, words.numel() // swar.GROUP_WORDS], dtype=torch.int32,
+                      device=cuda_device)
+    names = _kernel_names(lambda: swar.gather_verify(words, g8, limit, P, M), "_kernel")
+    assert names == {x for x in names if "naive_groups_kernel" in x} and len(names) == 1, names
+
+
+@pytest.mark.parametrize("m", [2, 16, 40, 509])
+def test_gather_verify_bit_exact_on_id_lists(m, cuda_device):
+    """K11d on the tiled verify equals its plain version (tolerance 0) and
+    K2's rows on id lists with the region's last group (its halo past the
+    text), repeated and unordered ids, negative, out-of-range and fill ids,
+    more ids than the grid has CTAs, at a clamp inside a listed group and
+    at the last valid start; m = 509's halo reaches into the next group."""
+    pat = bytes(gen_english(8192, seed=6)[200 : 200 + m])
+    n = 8 * TILE
+    data = bytearray(gen_english(n, seed=m + 40))
+    for off in [4096 * (g + 1) - m // 2 - 1 for g in range(0, 1024, 37)] + [n - m]:
+        data[off : off + m] = pat
+    words = torch.from_numpy(np.frombuffer(bytes(data), np.int32).copy()).to(cuda_device)
+    P, M = (torch.from_numpy(a).to(cuda_device) for a in swar.pattern_words(_u8(pat)))
+    nb8 = words.numel() // swar.GROUP_WORDS
+    k2 = swar.naive_nib(words, n - m, P, M)[0].view(-1, 8, 128)
+    lists = [[nb8 - 1, 0, 37, 37, 1000, nb8, -1, nb8 + 5, 36, nb8 - 1],
+             list(range(nb8 - 1, -1, -1)) * 5 + [nb8] * 7]
+    for n_lim in (n - m, 4096 * 37 + 1500):
+        if n_lim != n - m:
+            k2 = swar.naive_nib(words, n_lim, P, M)[0].view(-1, 8, 128)
+        for ids in lists:
+            g8 = torch.tensor(ids, dtype=torch.int32, device=cuda_device)
+            got = swar.gather_verify(words, g8, n_lim, P, M)
+            want = swar.gather_verify_plain(words, g8, n_lim, P, M)
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), (m, n_lim, len(ids))
+            listed = (g8 >= 0) & (g8 < nb8)
+            rows = torch.zeros_like(got[0])
+            rows[listed] = k2[g8[listed].long()]
+            assert torch.equal(got[0], rows), (m, n_lim, len(ids))
+            assert int(got[2]) > 0
+
+
+def _kernel_names(fn, part: str) -> set:
+    """Names of the kernels holding ``part`` that torch.profiler records
+    for one call of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and part in e.name}
 
 
 def test_kmp_composed_match_end_to_end(cuda_device, monkeypatch):

@@ -1,8 +1,10 @@
 """PyTorch port of the ``exp/`` kernel prototypes (K11a-d): the plain
 versions against the Pallas kernels of ``exp/screen_kernel_opt.py`` and
 ``exp/proto_kernels.py``, run in interpret mode on the CPU, and the
-screen -> group gather-verify -> offsets path against the oracle.
-Tolerance: exact integer equality.
+screen -> group gather-verify -> offsets path against the oracle, and a
+numpy model of K11d's gathered-tile verify (``gathered_verify``, following
+``naive_groups_kernel`` in ``csrc/swar.cu``) against both.  Tolerance:
+exact integer equality.
 
 The ``exp/`` builders take no ``interpret`` flag, so ``pallas_call`` is
 patched to ``functools.partial(pallas_call, interpret=True)`` for these
@@ -48,6 +50,7 @@ from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.kern
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TILE = 128 * 4096          # the prototypes' 512 KiB tile (R = 128)
 GROUP = 4096               # bytes per gather-verify group
+GROUP_WORDS = GROUP // 4
 PATTERNS = [b"quick brown fox ", b"e ", b"fox jumps over lazy dog and cat with so"]
 
 
@@ -214,6 +217,87 @@ def test_gather_verify_matches_pallas(m, interp):
         assert torch.equal(nib[i], rows[g] if g < nb8 else torch.zeros_like(nib[i]))
     want = [p for p in find_all(text[:n], pat) if p // GROUP in set(g8.tolist())]
     assert int(cnt) == len(want) > 0
+
+
+def gathered_verify(words: np.ndarray, g8, n_lim: int, P: np.ndarray, M: np.ndarray):
+    """(nib int64[G, 8, 128], bsr, total) as ``naive_groups_kernel`` in
+    ``csrc/swar.cu`` computes K11d, stated in numpy.  Tile i is group g8[i]
+    (1024 words) and the nw - 1 halo words after it, zeros past the text;
+    an id outside [0, n_words / 1024) stages zeros and reads nothing.  Warp
+    r verifies row r, block 8 g8[i] + r: K2's screen (each alignment's
+    first and last whole words, word 0 twice if none is whole), the chains
+    of the words with a hit only when the warp has one, the clamp of starts
+    past n_lim, a row's 128 nibble words and its popcount; the total is
+    the sum of the warps' rows."""
+    words = np.asarray(words).view(np.uint32).astype(np.int64)
+    P = np.asarray(P).view(np.uint32).astype(np.int64)
+    M = np.asarray(M).view(np.uint32).astype(np.int64)
+    nw = P.shape[1]
+    n_groups = words.size // GROUP_WORDS
+    whole = M == 0xFFFFFFFF
+    ks = [(int(np.argmax(w)), int(w.size - 1 - np.argmax(w[::-1]))) if w.any() else (0, 0)
+          for w in whole]
+    nib = np.zeros((len(g8), 8, 128), np.int64)
+    for i, g in enumerate(int(x) for x in g8):
+        if not 0 <= g < n_groups:
+            continue  # zero rows
+        tile = np.zeros(GROUP_WORDS + nw - 1, np.int64)
+        src = words[g * GROUP_WORDS:(g + 1) * GROUP_WORDS + nw - 1]
+        tile[:src.size] = src
+        for r in range(8):  # warp r
+            win = np.lib.stride_tricks.sliding_window_view(
+                tile[128 * r:128 * r + 128 + nw - 1], nw)  # [word j, k]
+            hit = np.zeros(128, bool)
+            for a, (k0, k1) in enumerate(ks):
+                hit |= (((win[:, k0] & M[a, k0]) == P[a, k0])
+                        & ((win[:, k1] & M[a, k1]) == P[a, k1]))
+            if not hit.any():
+                continue
+            bits = np.zeros(128, np.int64)
+            for a in range(4):
+                ok = ((win & M[a]) == P[a]).all(1)
+                bits |= (ok & hit).astype(np.int64) << a
+            rel = np.clip(n_lim - 512 * (8 * g + r), -1, 512)
+            keep = np.clip(rel - 4 * np.arange(128) + 1, 0, 4)
+            nib[i, r] = bits & ((1 << keep) - 1)
+    bsr = sum((nib >> a) & 1 for a in range(4)).sum(2).reshape(-1)
+    return nib, bsr, int(bsr.sum())
+
+
+@pytest.mark.parametrize("m", [2, 16, 40, 509])
+def test_gathered_tiles_match_plain_and_pallas(m, interp):
+    """K11d's gathered-tile verify, stated in numpy, equals
+    ``gather_verify_plain`` on lists with the region's last group (its halo
+    runs past the text), repeated ids, ids out of order, negative ids and
+    fill ids, at a clamp mid-way into a listed group and at the last valid
+    start; and the Pallas ``_gv_kernel`` on the lists without negative ids
+    (it clamps a negative id's block index to group 0 and keeps its
+    starts).  At m = 509 each group's 127-word halo reaches into the next
+    group."""
+    _, pk = interp
+    pat = gen_english(8192, seed=6)[200:200 + m]
+    text, padded = _text(TILE, pat, seed=m + 3)
+    n = TILE - 7
+    nb8 = padded.size // GROUP
+    for g in (5, 70, nb8 - 1):  # the pattern across each group's last row and halo
+        off = GROUP * (g + 1) - m // 2 - 1
+        if off + m <= n:
+            padded[off:off + m] = np.frombuffer(pat, np.uint8)
+    words = padded.view(np.int32)
+    P, M, _ = _pattern(pat)
+    tw, tP, tM = torch.from_numpy(words.copy()), torch.from_numpy(P), torch.from_numpy(M)
+    listed = [nb8 - 1, 5, 70, 70, 0, nb8, 3, nb8 - 1]
+    for n_lim, ids in ((n - m, listed), (GROUP * 70 + 1500, listed + [-1, -9, nb8 + 4, 70])):
+        nib, bsr, total = gathered_verify(words, ids, n_lim, P, M)
+        want = swar.gather_verify_plain(tw, torch.tensor(ids, dtype=torch.int32), n_lim, tP, tM)
+        assert np.array_equal(nib, want[0].numpy()) and np.array_equal(bsr, want[1].numpy())
+        assert total == int(want[2]) > 0
+    nib_r, cnt_r, bsr_r = pk.gather_verify(jnp.asarray(words.reshape(-1, 128)),
+                                           jnp.asarray(np.array(listed, np.int32)),
+                                           n - m, jnp.asarray(P), m, len(listed))
+    nib, bsr, total = gathered_verify(words, listed, n - m, P, M)
+    assert np.array_equal(nib, np.asarray(nib_r)) and np.array_equal(bsr, np.asarray(bsr_r))
+    assert total == int(np.asarray(cnt_r))
 
 
 def test_group_ids_match_masked_positions():

@@ -88,6 +88,20 @@ source, in parallel), then:
     the path (``run_variant`` 'v1' and 'v2', ``exp.proto_kernels.gv_offsets``)
     against the oracle, and on the dense 64 MiB text, whose occupied groups
     outnumber cap_g, against the oracle on the listed groups;
+(i) streams files through ``StreamingMatcher`` (pinned reader, side copy
+    stream, resolver thread) at the default 64 MiB chunks, every result
+    held against the numpy reference under the per-chunk capacity rule:
+    BASELINE config 2's 1 GB corpus written to a temporary file (15 chunks,
+    the last 60,475,904 bytes) with its 8 patterns under ``rabin_karp``
+    (one K6 group) and a manifest, whose 8 journals must equal the
+    reference; one 16-byte pattern under the list of all four algorithms;
+    config 2 stopped after 5 chunks and resumed, its manifest and journals
+    byte-equal to the first run's; ``drain=True`` on the dense 64 MiB text
+    (m=2, capacity 65536); then the config 2 stream beside ``match`` from
+    host bytes in alternating passes, the 16-byte pattern streamed under
+    each algorithm alone, KMP's dense-DFA tail mask over a chunk's halo
+    page, and one config 2 stream under torch.profiler (device busy time,
+    idle share).  The files are deleted at its end;
 (e) times every kernel and its plain version with CUDA events (K4 / K10a
     at m = 16, 64 and 256, K9 beside them, K10c beside K6; each also by its
     own device time per call from torch.profiler, its time in the JSON
@@ -106,8 +120,10 @@ source, in parallel), then:
     English text in alternating passes, with their device time and events.
 
 The launch counters are zeroed before (b) and read after (f), zeroed again
-before (g) and read after it, and K1's, K11a's and K11d's zeroed before
-the path of (h) and read after it: each kernel must have been launched by
+before (g) and read after it, K1's, K11a's and K11d's zeroed before
+the path of (h) and read after it, and all zeroed again before the four
+streams of (i) and read after them (K1, K3, K4, K5 and K6 must rise; the
+JSON line's ``stream_launches``): each kernel must have been launched by
 the main-path run that exercises it.  Every printed line is flushed at
 once, so a failure leaves the lines before it and its traceback on
 stderr.  In a directory without the port (``chip_smoke.py`` alone) the
@@ -125,9 +141,12 @@ import collections
 import contextlib
 import functools
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 PKG = "parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch"
@@ -364,6 +383,178 @@ def device_profile(fn, runs: int) -> tuple[float, float, dict]:
     return sum(split.values()), events / runs, dict(split.most_common(6))
 
 
+def device_busy(prof) -> tuple[float, float, int, dict]:
+    """(busy ms, summed ms, events, summed ms of the six event names that
+    take the most) of the card's events in a torch.profiler trace: busy is
+    the union of their intervals, so a copy that overlaps a kernel counts
+    once there and twice in the sum."""
+    import torch
+
+    spans, split = [], collections.Counter()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            spans.append((e.time_range.start, e.time_range.end))
+            split[e.name] += e.time_range.elapsed_us() / 1e3
+    busy, end = 0.0, float("-inf")
+    for lo, hi in sorted(spans):
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    return busy / 1e3, sum(split.values()), len(spans), dict(split.most_common(6))
+
+
+def by_capacity(w, chunk: int, cap: int):
+    """(offsets, overflow) a stream of ``chunk``-byte chunks returns for
+    the ascending match starts ``w`` when each chunk keeps its first
+    ``cap``."""
+    import numpy as np
+
+    ids = w // chunk
+    rank = np.arange(len(w)) - np.searchsorted(ids, ids)
+    return w[rank < cap], bool((rank >= cap).any())
+
+
+def stream_phase(workdir: str, big: bytes, c2_pats, c2_cfg, c2_want, dense_text: bytes,
+                 dense_pat: bytes, dense_cfg, kernels: dict, zero_counts, card: str,
+                 chunk: int, device="cuda") -> dict:
+    """Phase (i): ``StreamingMatcher`` over files in ``workdir`` (config 2's
+    corpus ``big`` and ``dense_text``), every result held against the
+    numpy reference (``c2_want``; the dense one made here) under the
+    per-chunk capacity rule.  The launch counters are zeroed before the
+    four cases and returned as read just after them; the timings and the
+    profiler pass follow."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch import (
+        StreamingMatcher,
+        match,
+    )
+
+    c2_path = os.path.join(workdir, "config2.bin")
+    dense_path = os.path.join(workdir, "dense.bin")
+    t0 = time.perf_counter()
+    for path, data in ((c2_path, big), (dense_path, dense_text)):
+        with open(path, "wb") as f:
+            f.write(data)
+    dense_want = np_find_all(np.frombuffer(dense_text, np.uint8), dense_pat)
+    print(f"(i) files written ({len(big)} and {len(dense_text)} B) and the dense "
+          f"reference made: {time.perf_counter() - t0:.1f} s")
+
+    def hold(tag: str, rs, wants, cap: int, drained: bool = False) -> None:
+        for r, w in zip(rs, wants, strict=True):
+            offs, ovf = (w, False) if drained else by_capacity(w, chunk, cap)
+            assert r.count == len(w), f"(i) {tag} {r.pattern!r}: count {r.count} vs {len(w)}"
+            assert r.overflow == ovf, f"(i) {tag} {r.pattern!r}: overflow {r.overflow}"
+            assert r.offsets.dtype == np.int64 and np.array_equal(r.offsets, offs), (
+                f"(i) {tag} {r.pattern!r}: offsets")
+
+    def stream(tag: str, pattern, algo, config, wants, path=c2_path, manifest=None,
+               drained: bool = False, **kw):
+        sm = StreamingMatcher(pattern, algo, config, chunk, manifest, device=device)
+        t0 = time.perf_counter()
+        rs = sm.match_file(path, drain=drained, **kw)
+        dt = time.perf_counter() - t0
+        rs = rs if isinstance(rs, list) else [rs]
+        hold(tag, rs, wants, config.capacity, drained)
+        # The bytes of the chunks this call streamed (a resumed run skips some).
+        size = os.path.getsize(path)
+        size -= (-(-size // chunk) - sm.last_stats["chunks"]) * chunk
+        print(f"(i) {tag}: counts {[r.count for r in rs]} == numpy reference, offsets "
+              f"equal{' (all, drained)' if drained else ''}, overflow "
+              f"{[r.overflow for r in rs]}; wall {dt} s = {size / dt / 1e9} GB/s of "
+              f"{sm.last_stats['chunks']} chunks; last_stats {sm.last_stats} {card}")
+        return sm, rs
+
+    zero_counts()
+    man1 = os.path.join(workdir, "case1.json")
+    sm1, _ = stream("case 1: config 2, k=8 m=16 rabin_karp, manifest", c2_pats,
+                    "rabin_karp", c2_cfg, c2_want, manifest=man1)
+    assert len(sm1._units) == 1 and sm1._units[0].multi, "(i) case 1 is not one group"
+    for i, w in enumerate(c2_want):
+        assert np.array_equal(np.fromfile(f"{man1}.offsets.{i}", "<i8"), w), (
+            f"(i) case 1 journal {i}")
+    algos = ["boyer_moore", "naive", "kmp", "rabin_karp"]
+    stream(f"case 2: {c2_pats[0]!r} under {algos}", c2_pats[0], algos, c2_cfg,
+           [c2_want[0]] * len(algos))
+
+    class Stopped(StreamingMatcher):
+        def _iter_chunks(self, *args):
+            for item in super()._iter_chunks(*args):
+                if item[0] >= 5:
+                    return
+                yield item
+
+    man3 = os.path.join(workdir, "case3.json")
+    Stopped(c2_pats, "rabin_karp", c2_cfg, chunk, man3, device=device).match_file(c2_path)
+    with open(man3) as f:
+        assert json.load(f)["next_chunk"] == 5, "(i) case 3 did not stop after 5 chunks"
+    sm3, _ = stream("case 3: config 2 stopped after 5 chunks, then resume=True",
+                    c2_pats, "rabin_karp", c2_cfg, c2_want, manifest=man3, resume=True)
+    assert sm3.last_stats["chunks"] == -(-len(big) // chunk) - 5, "(i) case 3 chunks"
+    for suffix in ["", *(f".offsets.{i}" for i in range(len(c2_pats)))]:
+        with open(man1 + suffix, "rb") as f, open(man3 + suffix, "rb") as g:
+            assert f.read() == g.read(), f"(i) case 3 {suffix or 'manifest'} differs"
+    print("(i) case 3: manifest and 8 journals byte-equal to case 1's")
+    assert len(dense_want) > 8 * dense_cfg.capacity, "(i) case 4 does not overflow"
+    sm4, _ = stream(f"case 4: drain, dense {dense_pat!r} capacity {dense_cfg.capacity}",
+                    dense_pat, "boyer_moore", dense_cfg, [dense_want], path=dense_path,
+                    drained=True)
+    assert sm4.last_stats["drained_slots"] >= 1, "(i) case 4 drained nothing"
+    launches = {k: f.launches for k, f in kernels.items()}
+    for k in ("screen_cand_bsums", "naive_bsums", "kmp_bsums", "rk_candidate_bsums",
+              "rk_candidate_pmask"):
+        assert launches[k] > 0, f"kernel {k} was not launched by the stream"
+    print(f"streaming launches (i): {launches}")
+
+    # Case 1 beside match() from host bytes, in alternating passes.
+    walls = {"match_stream": [], "match from host bytes": []}
+    for _ in range(2):
+        t0 = time.perf_counter()
+        rs = match(big, c2_pats, algo="rabin_karp", config=c2_cfg, device=device)
+        walls["match from host bytes"].append(time.perf_counter() - t0)
+        sm = StreamingMatcher(c2_pats, "rabin_karp", c2_cfg, chunk, device=device)
+        t0 = time.perf_counter()
+        sm.match_file(c2_path)
+        walls["match_stream"].append(time.perf_counter() - t0)
+        print(f"(i) case 1 pass: match_stream last_stats {sm.last_stats}")
+    hold("case 1, match from host bytes", rs, c2_want, c2_cfg.capacity)
+    for k, v in walls.items():
+        print(f"(i) case 1 {k}, 1 GB k=8 m=16: passes {v} s, best {min(v)} s = "
+              f"{len(big) / min(v) / 1e9} GB/s {card}")
+
+    # Case 2's pattern under each algorithm alone, and the KMP tail's share:
+    # the dense-DFA mask over [cut, _dev_len), the halo page and m - 1
+    # bytes, once per chunk.
+    for algo in algos:
+        sm = StreamingMatcher(c2_pats[0], algo, c2_cfg, chunk, device=device)
+        t0 = time.perf_counter()
+        r = sm.match_file(c2_path)
+        dt = time.perf_counter() - t0
+        hold(f"{algo} alone", [r], c2_want[:1], c2_cfg.capacity)
+        print(f"(i) {c2_pats[0]!r} under {algo} alone: wall {dt} s = "
+              f"{len(big) / dt / 1e9} GB/s; last_stats {sm.last_stats} {card}")
+    ks = StreamingMatcher(c2_pats[0], "kmp", c2_cfg, chunk, device=device)
+    tail = torch.zeros(ks._dev_len - chunk + ks.m - 1, dtype=torch.uint8, device=device)
+    tail_ms = host_ms(lambda: ks.matcher._mask(tail), iters=3, passes=2)
+    print(f"(i) KMP m={ks.m} dense-DFA tail mask over {tail.numel()} B (a chunk's "
+          f"halo page and m - 1 bytes): passes {tail_ms} ms {card}")
+
+    sm = StreamingMatcher(c2_pats, "rabin_karp", c2_cfg, chunk, device=device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rs = sm.match_file(c2_path)
+        wall = time.perf_counter() - t0
+    hold("case 1 under the profiler", rs, c2_want, c2_cfg.capacity)
+    busy, summed, events, split = device_busy(prof)
+    parts = ", ".join(f"{name[:48]} {x} ms" for name, x in split.items())
+    print(f"(i) case 1 under torch.profiler: wall {wall} s, {events} device events, "
+          f"device busy {busy} ms (summed {summed} ms: {parts}), idle share "
+          f"{1 - busy / 1e3 / wall} of the wall; last_stats {sm.last_stats} {card}")
+    return launches
+
+
 def main() -> int:
     sys.stdout.reconfigure(line_buffering=True)
     import torch
@@ -400,6 +591,9 @@ def main() -> int:
     )
     from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.ops import (
         kmp as kmp_ops,
+    )
+    from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.parallel.streaming import (
+        DEFAULT_CHUNK_BYTES,
     )
     from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.ops import (
         emit,
@@ -1303,6 +1497,20 @@ def main() -> int:
     launches.update({k: launches_h[k] for k in ("screen_cand_nibsums", "gather_verify")})
     print(f"exp/ path launches (h): {launches_h} ({time.perf_counter() - t_h:.1f} s for (h))")
 
+    # -- (i) streaming over config 2's corpus on disk, counters zeroed ------
+    t_i = time.perf_counter()
+    n_chunks = -(-len(big) // DEFAULT_CHUNK_BYTES)
+    assert (n_chunks, len(big) - (n_chunks - 1) * DEFAULT_CHUNK_BYTES) == (15, 60_475_904), (
+        "(i) config 2 is not 15 chunks with a ragged last one")
+    stream_dir = tempfile.mkdtemp(prefix="chip_smoke_stream_")
+    try:
+        launches_i = stream_phase(stream_dir, big, c2_pats, c2_cfg, c2_want, dense_text,
+                                  dense_pat, cfg, kernels, zero_counts, card,
+                                  DEFAULT_CHUNK_BYTES)
+    finally:
+        shutil.rmtree(stream_dir, ignore_errors=True)
+    print(f"(i) {time.perf_counter() - t_i:.1f} s for (i)")
+
     # -- (e) timings ---------------------------------------------------------
     text, pat = corpora["english"]
     n = len(text)
@@ -1703,7 +1911,7 @@ def main() -> int:
          "launches": launches[k],
          "max_abs_err": errs[k], "ms": ms[k], "plain_ms": plain_ms[k],
          "bound_ms": bounds[k][0], "bound_by": bounds[k][1], "library_ms": None,
-         "shape": f"256 MiB english {shape[k]}"}
+         "shape": f"256 MiB english {shape[k]}", "stream_launches": launches_i.get(k, 0)}
         for k, (src, ref) in sources.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

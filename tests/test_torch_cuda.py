@@ -2,7 +2,8 @@
 plain versions and against the ported kernel with the same answer, and
 ``match()`` of every algorithm, of every ``emission``, Boyer-Moore screen,
 probe mode and variant, of KMP's composed step, and of pattern lists under
-every ``multi_gather``, and the ``exp/`` gather-verify path, against the
+every ``multi_gather``, the ``exp/`` gather-verify path, and
+``match_stream`` (pinned reader, side copy stream, resolver), against the
 oracle.  Every test here is marked
 ``cuda`` and skips without a GPU.
 
@@ -13,6 +14,8 @@ be left out:
     python -m pytest -o addopts="" --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -21,6 +24,7 @@ from conformance.oracle import find_all
 from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch import (
     MatchConfig,
     RabinKarpMultiMatcher,
+    StreamingMatcher,
     match,
 )
 from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.kernels import (
@@ -952,3 +956,143 @@ def test_gv_offsets_end_to_end(pat, cuda_device):
     assert pat != b"e " or len(listed) == cap_g
     assert count == len(want) and overflow == (len(want) > 1 << 16)
     assert offs.tolist() == want[: 1 << 16]
+
+
+# -- streaming ---------------------------------------------------------------
+
+# 512 KiB chunks on 512 KiB tiles for every kernel (pallas_chunk_bytes 4096):
+# each chunk's owned bytes are one kernel tile, its halo the plain tail.
+STREAM_CHUNK = 128 * 4096
+STREAM_CFG = MatchConfig(capacity=4096, pallas_chunk_bytes=4096)
+STREAM_PAT = b"quick brown fox "
+STREAM_SCAN = {"boyer_moore": swar.screen_cand_bsums, "naive": swar.naive_bsums,
+               "kmp": shift_and.kmp_bsums, "rabin_karp": rk_roll.rk_candidate_bsums}
+
+
+@pytest.fixture(scope="module")
+def stream_file(tmp_path_factory):
+    """(path, bytes): ~8.5 MiB of English over 18 chunks; STREAM_PAT at
+    seam k starting k - 1 bytes before it (every phase from 0 to -15),
+    at the start, mid-chunk and ending the file."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is False")
+    C, m = STREAM_CHUNK, len(STREAM_PAT)
+    data = bytearray(gen_english(17 * C + 777, seed=31))
+    for k in range(1, 17):
+        p = k * C - (k - 1)
+        data[p : p + m] = STREAM_PAT
+    for p in (0, C // 2 + 3, len(data) - m):
+        data[p : p + m] = STREAM_PAT
+    path = tmp_path_factory.mktemp("stream") / "corpus.bin"
+    path.write_bytes(bytes(data))
+    return str(path), bytes(data)
+
+
+def _stream(path, pattern, algo="boyer_moore", cfg=STREAM_CFG, **kw):
+    sm = StreamingMatcher(pattern, algo, cfg, STREAM_CHUNK, device="cuda",
+                          manifest_path=kw.pop("manifest_path", None))
+    for key, value in kw.pop("attrs", {}).items():
+        setattr(sm, key, value)
+    return sm, sm.match_file(path, **kw)
+
+
+@pytest.mark.parametrize("algo", list(STREAM_SCAN))
+def test_stream_on_card_exact(algo, cuda_device, stream_file):
+    """Every seam phase found once, against the oracle; the algorithm's
+    scan kernel launched in every chunk."""
+    path, data = stream_file
+    before = STREAM_SCAN[algo].launches
+    sm, r = _stream(path, STREAM_PAT, algo)
+    want = find_all(data, STREAM_PAT)
+    assert len(want) >= 19 and r.count == len(want)
+    assert r.offsets_list() == want and not r.overflow
+    assert sm.last_stats["chunks"] == 18
+    assert STREAM_SCAN[algo].launches - before >= 18
+
+
+def test_stream_on_card_algorithm_list_and_group(cuda_device, stream_file, tmp_path):
+    """One pattern under all four algorithms in one pass, and eight 16-byte
+    patterns under Rabin-Karp (one K6 pass per chunk), journaled: every
+    result and journal equals the oracle."""
+    path, data = stream_file
+    sm, rs = _stream(path, STREAM_PAT, list(STREAM_SCAN))
+    assert [r.offsets_list() for r in rs] == [find_all(data, STREAM_PAT)] * 4
+    pats = [STREAM_PAT] + [data[(2 * i + 1) * STREAM_CHUNK - 7 - i:][:16]
+                           for i in range(7)]
+    k6 = rk_roll.rk_candidate_pmask.launches
+    manifest = str(tmp_path / "m.json")
+    sm, rs = _stream(path, pats, "rabin_karp", manifest_path=manifest)
+    assert len(sm._units) == 1 and sm._units[0].multi
+    assert rk_roll.rk_candidate_pmask.launches - k6 >= 18
+    for i, (p, r) in enumerate(zip(pats, rs)):
+        want = find_all(data, p)
+        assert r.count == len(want) and r.offsets_list() == want, p
+        assert np.fromfile(f"{manifest}.offsets.{i}", "<i8").tolist() == want
+
+
+@pytest.mark.parametrize("depth", ["reached", "not_reached"])
+def test_stream_on_card_pipeline_depth(depth, cuda_device, stream_file, monkeypatch):
+    """The resolver holds chunk 0 until the main thread has packed two more
+    chunks, then 0.3 s longer: a queue of one fills (the main thread waits
+    to enqueue), a queue of 64 does not.  Both exact, no chunk past its
+    capacity."""
+    import time as _time
+
+    path, data = stream_file
+    packed = []
+    pack, save = StreamingMatcher._pack_outputs, StreamingMatcher._save_manifest
+
+    def counted(self, *a):
+        packed.append(1)
+        return pack(self, *a)
+
+    def held(self, path, rng, next_chunk, *a):
+        if next_chunk == 1:
+            deadline = _time.monotonic() + 60
+            while len(packed) < 3 and _time.monotonic() < deadline:
+                _time.sleep(0.001)
+            _time.sleep(0.3)
+        return save(self, path, rng, next_chunk, *a)
+
+    monkeypatch.setattr(StreamingMatcher, "_pack_outputs", counted)
+    monkeypatch.setattr(StreamingMatcher, "_save_manifest", held)
+    pats = [STREAM_PAT, b"the ", b"lazy dog"]
+    sm, rs = _stream(path, pats, "kmp",
+                     attrs={"pipeline_depth": 1 if depth == "reached" else 64})
+    for p, r in zip(pats, rs):
+        want = find_all(data, p)
+        assert r.count == len(want) and r.offsets_list() == want, p
+        assert not r.overflow
+    assert len(packed) == sm.last_stats["chunks"] == 18
+    waited = sm.last_stats["enqueue_wait_s"]
+    assert (waited > 0.2) if depth == "reached" else (waited < 0.1), waited
+
+
+def test_stream_on_card_resume_and_drain(cuda_device, stream_file, tmp_path):
+    """Stopped after 5 chunks and resumed: the same journal and manifest as
+    an uninterrupted run; drain=True past capacity returns every offset."""
+    path, data = stream_file
+    full = str(tmp_path / "full.json")
+    _, r_full = _stream(path, STREAM_PAT, "rabin_karp", manifest_path=full)
+
+    class Stopped(StreamingMatcher):
+        def _iter_chunks(self, *args):
+            for item in super()._iter_chunks(*args):
+                if item[0] >= 5:
+                    return
+                yield item
+
+    part = str(tmp_path / "part.json")
+    Stopped(STREAM_PAT, "rabin_karp", STREAM_CFG, STREAM_CHUNK, part,
+            device="cuda").match_file(path)
+    _, r = _stream(path, STREAM_PAT, "rabin_karp", manifest_path=part, resume=True)
+    assert r.offsets_list() == r_full.offsets_list() == find_all(data, STREAM_PAT)
+    with open(full + ".offsets", "rb") as f, open(part + ".offsets", "rb") as g:
+        assert f.read() == g.read()
+    assert json.load(open(full)) == json.load(open(part))
+    sm, r = _stream(path, b"e ", "boyer_moore", STREAM_CFG.replace(capacity=256),
+                    drain=True)
+    want = find_all(data, b"e ")
+    assert r.offsets_list() == want and not r.overflow
+    per_chunk = np.bincount(np.array(want) // STREAM_CHUNK)
+    assert sm.last_stats["drained_slots"] == int((per_chunk > 256).sum()) >= 17

@@ -34,8 +34,9 @@ def test_port_never_imports_jax():
         names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + ".")]
         for name in names:
             importlib.import_module(name)
-        assert len(names) >= 26, names
+        assert len(names) >= 28, names
         assert p.__name__ + ".exp.proto_kernels" in names, names
+        assert p.__name__ + ".parallel.streaming" in names, names
         bad = sorted(k for k in sys.modules if k == "jax" or k.startswith("jax.")
                      or k.startswith("jaxlib")
                      or k.startswith("parallel_implementation_of_string_matching_algorithms_opencl_tpu.")

@@ -101,7 +101,20 @@ source, in parallel), then:
     host bytes in alternating passes, the 16-byte pattern streamed under
     each algorithm alone, KMP's dense-DFA tail mask over a chunk's halo
     page, and one config 2 stream under torch.profiler (device busy time,
-    idle share).  The files are deleted at its end;
+    idle share).  The files are deleted at the end of (j);
+(j) drives the sharded paths on a one-rank NCCL process group (the group
+    destroyed at its end; NCCL failing fails the script): BASELINE config 3
+    (100 MB ``gen_english`` seed 3, KMP at m = 4, 16, 64 and 256, pattern
+    ``text[5000:5000+m]``, capacity as bench/matrix.py's ``_cap``) through
+    ``match_distributed`` under both ``dist_gather`` modes, the four
+    algorithms at m=16 on the 256 MiB English corpus, config 2's 8 patterns
+    through ``DistributedMultiMatcher``, a drain of the dense 64 MiB text
+    at capacity 65536, ``match_multihost`` and ``match_multihost_streaming``
+    on config 2's file, and the int64 gathers past 2**40 over NCCL, each
+    against the numpy reference; then the walls of ``match_distributed``
+    against ``match`` on the same bytes per config 3 pattern (the
+    reference's ``dist_over_single`` at world 1) and the NCCL kernels'
+    device time from torch.profiler;
 (e) times every kernel and its plain version with CUDA events (K4 / K10a
     at m = 16, 64 and 256, K9 beside them, K10c beside K6; each also by its
     own device time per call from torch.profiler, its time in the JSON
@@ -123,7 +136,8 @@ The launch counters are zeroed before (b) and read after (f), zeroed again
 before (g) and read after it, K1's, K11a's and K11d's zeroed before
 the path of (h) and read after it, and all zeroed again before the four
 streams of (i) and read after them (K1, K3, K4, K5 and K6 must rise; the
-JSON line's ``stream_launches``): each kernel must have been launched by
+JSON line's ``stream_launches``), and again before (j) and read after its
+runs (the same five must rise; ``dist_launches``): each kernel must have been launched by
 the main-path run that exercises it.  Every printed line is flushed at
 once, so a failure leaves the lines before it and its traceback on
 stderr.  In a directory without the port (``chip_smoke.py`` alone) the
@@ -552,6 +566,191 @@ def stream_phase(workdir: str, big: bytes, c2_pats, c2_cfg, c2_want, dense_text:
     print(f"(i) case 1 under torch.profiler: wall {wall} s, {events} device events, "
           f"device busy {busy} ms (summed {summed} ms: {parts}), idle share "
           f"{1 - busy / 1e3 / wall} of the wall; last_stats {sm.last_stats} {card}")
+    return launches
+
+
+def c3_capacity(estimate: float) -> int:
+    """bench/matrix.py:242 ``_cap``: the next power of two above twice the
+    expected match count, at least 2**16."""
+    return max(1 << 16, 1 << int(estimate * 2).bit_length())
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dist_phase(workdir: str, eng: bytes, eng_pat: bytes, big: bytes, c2_pats, c2_cfg,
+               c2_want, dense_text: bytes, dense_pat: bytes, kernels: dict, zero_counts,
+               card: str, c3_bytes: int = 100_000_000, backend: str = "nccl",
+               device="cuda") -> dict:
+    """Phase (j): the sharded paths on a one-rank process group (NCCL on the
+    card; never another backend).  BASELINE config 3 (``c3_bytes`` of
+    ``gen_english`` seed 3, KMP at m = 4, 16, 64 and 256, pattern
+    ``text[5000:5000+m]``) through ``match_distributed`` under both
+    ``dist_gather`` modes, the four algorithms on ``eng``, config 2 through
+    ``DistributedMultiMatcher``, a drain of ``dense_text`` at capacity
+    65536, ``match_multihost`` and ``match_multihost_streaming`` on config
+    2's file in ``workdir``, and the int64 gathers past 2**40; every result
+    held against the numpy reference.  The launch counters are zeroed before
+    these and returned as read just after them; then the walls of
+    ``match_distributed`` against ``match`` on the same bytes per config 3
+    pattern, and the collectives' device time from torch.profiler."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch import (
+        MatchConfig,
+        match,
+        match_distributed,
+        match_multihost,
+        match_multihost_streaming,
+    )
+    from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.parallel import (
+        multihost,
+    )
+    from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.parallel.mesh import (
+        make_data_mesh,
+    )
+    from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.parallel.streaming import (
+        DEFAULT_CHUNK_BYTES,
+    )
+    from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.utils.io import (
+        gen_english,
+    )
+
+    t0 = time.perf_counter()
+    c3 = gen_english(c3_bytes, seed=3)
+    c3_np = np.frombuffer(c3, np.uint8)
+    c3_pats = {m: c3[5000 : 5000 + m] for m in (4, 16, 64, 256)}
+    c3_want = {m: np_find_all(c3_np, p) for m, p in c3_pats.items()}
+    # bench/matrix.py:427-429: m=4 matches ~5e-3 of the bytes of English.
+    c3_caps = {m: c3_capacity((8e-3 if m == 4 else 2e-4) * c3_bytes) for m in c3_pats}
+    c3_cfg = {m: MatchConfig(capacity=c, verify_capacity=c) for m, c in c3_caps.items()}
+    eng_want = np_find_all(np.frombuffer(eng, np.uint8), eng_pat)
+    dense_want = np_find_all(np.frombuffer(dense_text, np.uint8), dense_pat)
+    c2_path = os.path.join(workdir, "config2.bin")
+    print(f"(j) config 3 corpus ({c3_bytes} B) and the numpy references: "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    def hold(tag: str, r, want, cap: int, drained: bool = False) -> None:
+        assert r.count == len(want), f"(j) {tag}: count {r.count} vs {len(want)}"
+        offs, ovf = (want, False) if drained else (want[:cap], len(want) > cap)
+        assert r.overflow == ovf, f"(j) {tag}: overflow {r.overflow}"
+        assert r.offsets.dtype == np.int64 and np.array_equal(r.offsets, offs), (
+            f"(j) {tag}: offsets")
+
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:  # init_process_group wants one
+        dev = torch.device("cuda", torch.cuda.current_device())
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{free_port()}",
+                            rank=0, world_size=1,
+                            device_id=dev if backend == "nccl" else None)
+    try:
+        mesh = make_data_mesh(device=device)
+        assert (mesh.world, dist.get_backend(mesh.group)) == (1, backend), "(j) group"
+        t_run = time.perf_counter()
+        zero_counts()
+        for m, pat in c3_pats.items():
+            for mode in ("count_sized", "fixed"):
+                cfg = c3_cfg[m].replace(dist_gather=mode)
+                t0 = time.perf_counter()
+                r = match_distributed(c3, pat, algo="kmp", config=cfg, mesh=mesh)
+                dt = time.perf_counter() - t0
+                hold(f"config 3 m={m} {mode}", r, c3_want[m], cfg.capacity)
+                assert r.algo == "kmp@mesh1", r.algo
+                print(f"(j) config 3 KMP m={m} dist_gather={mode}: count {r.count} == numpy "
+                      f"reference, offsets equal, capacity {cfg.capacity} ({dt:.2f} s from "
+                      f"host bytes)")
+        for algo in ALGOS:
+            r = match_distributed(eng, eng_pat, algo=algo, mesh=mesh)
+            hold(f"{algo} 256 MiB", r, eng_want, 65536)
+            print(f"(j) {algo} m={len(eng_pat)} on {len(eng)} B English: count {r.count} == "
+                  f"numpy reference, offsets equal")
+        rs = match_distributed(big, c2_pats, algo="rabin_karp", config=c2_cfg, mesh=mesh)
+        for p, r, w in zip(c2_pats, rs, c2_want, strict=True):
+            hold(f"config 2 {p!r}", r, w, c2_cfg.capacity)
+            assert r.algo == "rabin_karp_multi@mesh1", r.algo
+        print(f"(j) config 2, {len(big)} B k=8 through DistributedMultiMatcher: counts "
+              f"{[r.count for r in rs]} == numpy reference, offsets equal")
+        dense_cfg = MatchConfig(capacity=65536)
+        r = match_distributed(dense_text, dense_pat, config=dense_cfg, mesh=mesh,
+                              drain=True)
+        assert len(dense_want) > dense_cfg.capacity, "(j) the drain does not overflow"
+        hold("drain", r, dense_want, dense_cfg.capacity, drained=True)
+        print(f"(j) drain, dense {dense_pat!r} on {len(dense_text)} B capacity 65536: all "
+              f"{r.count} offsets equal")
+        r = match_multihost(c2_path, c2_pats[0], config=c2_cfg, device=device)
+        hold("match_multihost", r, c2_want[0], c2_cfg.capacity)
+        assert r.algo == "boyer_moore@hosts1", r.algo
+        rs = match_multihost_streaming(c2_path, c2_pats, algo="rabin_karp", config=c2_cfg,
+                                       device=device)
+        for r, w in zip(rs, c2_want, strict=True):
+            offs, ovf = by_capacity(w, DEFAULT_CHUNK_BYTES, c2_cfg.capacity)
+            assert r.count == len(w) and r.overflow == ovf and np.array_equal(
+                r.offsets, offs), f"(j) match_multihost_streaming {r.pattern!r}"
+        print(f"(j) match_multihost ({c2_pats[0]!r}) and match_multihost_streaming (k=8) "
+              f"on config 2's file: counts == numpy reference, offsets equal; tags "
+              f"boyer_moore@hosts1, {rs[0].algo}")
+        big_i = np.array([0, 2**40, 2**40 + 3, 99_999_999_999, 2**62 + 5, -1], np.int64)
+        got = multihost.allgather_i64(big_i.reshape(2, 3), mesh)
+        assert got.shape == (1, 2, 3) and np.array_equal(got[0], big_i.reshape(2, 3))
+        assert np.array_equal(multihost.allgather_ragged_i64(big_i[:-1], mesh), big_i[:-1])
+        assert multihost.allgather_ragged_i64(big_i[:0], mesh).size == 0
+        print(f"(j) allgather_i64 / allgather_ragged_i64 over {backend}: values past "
+              f"2**40 exact")
+        launches = {k: f.launches for k, f in kernels.items()}
+        print(f"sharded-path launches (j): {launches} ({time.perf_counter() - t_run:.1f} s "
+              f"for the runs)")
+        for k in ("screen_cand_bsums", "naive_bsums", "kmp_bsums", "rk_candidate_bsums",
+                  "rk_candidate_pmask"):
+            assert launches[k] > 0, f"kernel {k} was not launched by the sharded paths"
+
+        # The wrapper's cost: match_distributed against match on the same
+        # bytes, alternating, from host bytes.
+        calls = {"match": functools.partial(match, device=device),
+                 "match_distributed": functools.partial(match_distributed, mesh=mesh)}
+        for m, pat in c3_pats.items():
+            walls = {k: [] for k in calls}
+            for _ in range(3):
+                for k, fn in calls.items():
+                    t0 = time.perf_counter()
+                    fn(c3, pat, algo="kmp", config=c3_cfg[m])
+                    walls[k].append(time.perf_counter() - t0)
+            med = {k: statistics.median(v) for k, v in walls.items()}
+            print(f"(j) config 3 m={m} from host bytes: match_distributed passes "
+                  f"{walls['match_distributed']} s, match passes {walls['match']} s; "
+                  f"dist_over_single {med['match_distributed'] / med['match']} (medians) "
+                  f"{card}")
+        activities = [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+        for mode in ("count_sized", "fixed"):
+            cfg = c3_cfg[16].replace(dist_gather=mode)
+            with profile(activities=activities) as prof:
+                t0 = time.perf_counter()
+                match_distributed(c3, c3_pats[16], algo="kmp", config=cfg, mesh=mesh)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            if dev.type == "cuda":
+                busy, summed, events, split = device_busy(prof)
+                coll = [e for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA
+                        and "nccl" in e.name.lower()]
+                coll_ms = sum(e.time_range.elapsed_us() for e in coll) / 1e3
+                names = sorted({e.name[:60] for e in coll})
+                parts = ", ".join(f"{name[:48]} {x} ms" for name, x in split.items())
+                print(f"(j) config 3 m=16 dist_gather={mode} under torch.profiler: wall "
+                      f"{wall} s, {events} device events, busy {busy} ms (summed {summed} "
+                      f"ms: {parts}); NCCL kernels {len(coll)}, {coll_ms} ms device "
+                      f"({names}) {card}")
+    finally:
+        dist.destroy_process_group()
     return launches
 
 
@@ -1507,9 +1706,14 @@ def main() -> int:
         launches_i = stream_phase(stream_dir, big, c2_pats, c2_cfg, c2_want, dense_text,
                                   dense_pat, cfg, kernels, zero_counts, card,
                                   DEFAULT_CHUNK_BYTES)
+        print(f"(i) {time.perf_counter() - t_i:.1f} s for (i)")
+        # -- (j) the sharded paths on a one-rank NCCL group, counters zeroed -
+        t_j = time.perf_counter()
+        launches_j = dist_phase(stream_dir, eng, b"quick brown fox ", big, c2_pats, c2_cfg,
+                                c2_want, dense_text, dense_pat, kernels, zero_counts, card)
+        print(f"(j) {time.perf_counter() - t_j:.1f} s for (j) {card}")
     finally:
         shutil.rmtree(stream_dir, ignore_errors=True)
-    print(f"(i) {time.perf_counter() - t_i:.1f} s for (i)")
 
     # -- (e) timings ---------------------------------------------------------
     text, pat = corpora["english"]
@@ -1911,7 +2115,8 @@ def main() -> int:
          "launches": launches[k],
          "max_abs_err": errs[k], "ms": ms[k], "plain_ms": plain_ms[k],
          "bound_ms": bounds[k][0], "bound_by": bounds[k][1], "library_ms": None,
-         "shape": f"256 MiB english {shape[k]}", "stream_launches": launches_i.get(k, 0)}
+         "shape": f"256 MiB english {shape[k]}", "stream_launches": launches_i.get(k, 0),
+         "dist_launches": launches_j.get(k, 0)}
         for k, (src, ref) in sources.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

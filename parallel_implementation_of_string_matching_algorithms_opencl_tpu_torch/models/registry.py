@@ -1,8 +1,9 @@
-"""Algorithm registry: name -> Matcher class (plus aliases)."""
+"""Algorithm registry: name -> Matcher class (plus aliases), and the
+matcher cache the entry points share."""
 
 from __future__ import annotations
 
-from .base import Matcher
+from .base import Matcher, resolve_device
 
 _REGISTRY: dict[str, type[Matcher]] = {}
 _ALIASES = {
@@ -28,3 +29,18 @@ def get_matcher(name: str) -> type[Matcher]:
 
 def available_algorithms() -> list[str]:
     return sorted(_REGISTRY)
+
+
+_matcher_cache: dict = {}
+
+
+def cached_matcher(cls, pattern, config, device):
+    """``cls(pattern, config, device)``, built once per (matcher, pattern or
+    patterns, config, device), so repeated calls reuse its device tables;
+    ``pattern`` is bytes, or a tuple of bytes for ``RabinKarpMultiMatcher``."""
+    dev = resolve_device(device)
+    key = (cls.name, pattern, config, str(dev))
+    m = _matcher_cache.get(key)
+    if m is None:
+        m = _matcher_cache[key] = cls(pattern, config, dev)
+    return m

@@ -1,7 +1,7 @@
 """Match configuration (counterpart of the JAX package's ``utils/config.py``).
 
 Only the fields the matchers (naive, Rabin-Karp, KMP, Boyer-Moore and
-multi-pattern Rabin-Karp) read are carried.  The JAX-only switches (``use_pallas``,
+multi-pattern Rabin-Karp) and the sharded paths read are carried.  The JAX-only switches (``use_pallas``,
 ``interpret``, the AOT cache) have no meaning here: on a CUDA tensor the
 kernels always run, on a CPU tensor their plain PyTorch versions do.  Every
 mode of the reference's fields is implemented.
@@ -55,6 +55,11 @@ KMP_LONG = ("screen", "ripple")
 # candidate plane over all k targets (K10b) feeds every pattern's verify,
 # whatever this field says.
 MULTI_GATHER = ("pselect", "blocks", "groups")
+# Offset merge of the sharded paths (parallel/dist.py): 'count_sized'
+# gathers each rank's offset row cut to a power-of-two bucket at least its
+# largest per-shard count (``_pick_bucket``), so the traffic scales with the
+# result; 'fixed' gathers capacity-wide rows without sizing them first.
+DIST_GATHER = ("count_sized", "fixed")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,6 +102,8 @@ class MatchConfig:
     rk_base: int | None = None
     # Multi-pattern candidate extraction (see MULTI_GATHER).
     multi_gather: str = "pselect"
+    # Offset merge of the sharded paths (see DIST_GATHER).
+    dist_gather: str = "count_sized"
 
     def __post_init__(self):
         if self.pad_multiple < 4 or self.pad_multiple % 4:
@@ -128,7 +135,8 @@ class MatchConfig:
                               ("bm_variant", BM_VARIANT),
                               ("bm_screen", BM_SCREEN),
                               ("emission", EMISSION),
-                              ("multi_gather", MULTI_GATHER)):
+                              ("multi_gather", MULTI_GATHER),
+                              ("dist_gather", DIST_GATHER)):
             if getattr(self, field) not in values:
                 raise ValueError(f"unknown {field} {getattr(self, field)!r}")
 

@@ -2,9 +2,9 @@
 plain versions and against the ported kernel with the same answer, and
 ``match()`` of every algorithm, of every ``emission``, Boyer-Moore screen,
 probe mode and variant, of KMP's composed step, and of pattern lists under
-every ``multi_gather``, the ``exp/`` gather-verify path, and
-``match_stream`` (pinned reader, side copy stream, resolver), against the
-oracle.  Every test here is marked
+every ``multi_gather``, the ``exp/`` gather-verify path,
+``match_stream`` (pinned reader, side copy stream, resolver), and the
+sharded paths on a one-rank NCCL group, against the oracle.  Every test here is marked
 ``cuda`` and skips without a GPU.
 
 This file imports neither jax nor the JAX package, so it also runs on a
@@ -15,6 +15,7 @@ be left out:
 """
 
 import json
+import socket
 
 import numpy as np
 import pytest
@@ -26,6 +27,9 @@ from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch impo
     RabinKarpMultiMatcher,
     StreamingMatcher,
     match,
+    match_distributed,
+    match_multihost,
+    match_multihost_streaming,
 )
 from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.kernels import (
     rk_roll,
@@ -1096,3 +1100,65 @@ def test_stream_on_card_resume_and_drain(cuda_device, stream_file, tmp_path):
     assert r.offsets_list() == want and not r.overflow
     per_chunk = np.bincount(np.array(want) // STREAM_CHUNK)
     assert sm.last_stats["drained_slots"] == int((per_chunk > 256).sum()) >= 17
+
+
+# -- the sharded paths -------------------------------------------------------
+
+
+def test_sharded_paths_on_a_one_rank_nccl_group(cuda_device, stream_file):
+    """``match_distributed`` of every algorithm under both gathers, a
+    Rabin-Karp group and a drain, ``match_multihost`` and
+    ``match_multihost_streaming``, and the int64 gathers, through a one-rank
+    NCCL group on the card (collectives issued at world 1; the multi-host
+    paths return before theirs, as in the reference)."""
+    import torch.distributed as dist
+
+    from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.parallel import (
+        multihost,
+    )
+    from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.parallel.mesh import (
+        make_data_mesh,
+    )
+
+    path, data = stream_file
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        mesh = make_data_mesh()
+        assert (mesh.world, mesh.device.type, dist.get_backend()) == (
+            1, "cuda", "nccl")
+        want = find_all(data, STREAM_PAT)
+        for algo, kernel in STREAM_SCAN.items():
+            for mode in ("count_sized", "fixed"):
+                before = kernel.launches
+                r = match_distributed(data, STREAM_PAT, algo=algo, mesh=mesh,
+                                      config=STREAM_CFG.replace(dist_gather=mode))
+                assert (r.algo, r.count, r.offsets_list(), r.overflow) == (
+                    f"{algo}@mesh1", len(want), want, False)
+                assert kernel.launches > before, (algo, mode)
+        pats = [STREAM_PAT, b"lazy dog and cat"]
+        k6 = rk_roll.rk_candidate_pmask.launches
+        rs = match_distributed(data, pats, algo="rabin_karp", mesh=mesh,
+                               config=STREAM_CFG)
+        assert rk_roll.rk_candidate_pmask.launches > k6
+        for p, r in zip(pats, rs):
+            assert r.algo == "rabin_karp_multi@mesh1"
+            assert r.offsets_list() == find_all(data, p)
+        r = match_distributed(data, b"e ", mesh=mesh, drain=True,
+                              config=STREAM_CFG.replace(capacity=256))
+        assert r.offsets_list() == find_all(data, b"e ") and not r.overflow
+        r = match_multihost(path, STREAM_PAT, config=STREAM_CFG)
+        assert r.algo == "boyer_moore@hosts1" and r.offsets_list() == want
+        r = match_multihost_streaming(path, STREAM_PAT, config=STREAM_CFG,
+                                      chunk_bytes=STREAM_CHUNK)
+        assert r.algo == "boyer_moore@stream" and r.offsets_list() == want
+        big = np.array([2**40 + 3, 2**62 + 5, -1], np.int64)
+        assert np.array_equal(multihost.allgather_i64(big, mesh), big[None])
+        assert np.array_equal(multihost.allgather_ragged_i64(big[:2], mesh),
+                              big[:2])
+    finally:
+        dist.destroy_process_group()

@@ -34,9 +34,10 @@ def test_port_never_imports_jax():
         names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + ".")]
         for name in names:
             importlib.import_module(name)
-        assert len(names) >= 28, names
+        assert len(names) >= 31, names
         assert p.__name__ + ".exp.proto_kernels" in names, names
-        assert p.__name__ + ".parallel.streaming" in names, names
+        for mod in ("streaming", "dist", "mesh", "multihost"):
+            assert p.__name__ + ".parallel." + mod in names, names
         bad = sorted(k for k in sys.modules if k == "jax" or k.startswith("jax.")
                      or k.startswith("jaxlib")
                      or k.startswith("parallel_implementation_of_string_matching_algorithms_opencl_tpu.")
@@ -99,7 +100,7 @@ def test_ported_opt_in_modes_run(field, value):
 @pytest.mark.parametrize("kw", [
     {"pad_multiple": 6}, {"pallas_chunk_bytes": 1000}, {"capacity": -1},
     {"bm_probes": "nope"}, {"emission": "dense"},
-    {"bm_variant": "skip"}, {"bm_chunk": 0},
+    {"bm_variant": "skip"}, {"bm_chunk": 0}, {"dist_gather": "bogus"},
 ])
 def test_bad_config_values_raise(kw):
     with pytest.raises(ValueError):

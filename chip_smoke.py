@@ -101,7 +101,7 @@ source, in parallel), then:
     host bytes in alternating passes, the 16-byte pattern streamed under
     each algorithm alone, KMP's dense-DFA tail mask over a chunk's halo
     page, and one config 2 stream under torch.profiler (device busy time,
-    idle share).  The files are deleted at the end of (j);
+    idle share).  The files are deleted at the end of (k);
 (j) drives the sharded paths on a one-rank NCCL process group (the group
     destroyed at its end; NCCL failing fails the script): BASELINE config 3
     (100 MB ``gen_english`` seed 3, KMP at m = 4, 16, 64 and 256, pattern
@@ -115,6 +115,16 @@ source, in parallel), then:
     against ``match`` on the same bytes per config 3 pattern (the
     reference's ``dist_over_single`` at world 1) and the NCCL kernels'
     device time from torch.profiler;
+(k) drives the port's command line (``…_torch/cli.py``): one in-process
+    ``cli.main`` call (``bm`` with "quick brown fox " on the 256 MiB English
+    corpus written to a file), then ``python -m …_torch.cli`` processes:
+    each algorithm, config 2's 8 patterns under ``rk`` on its 1 GB file,
+    ``--emission nib``, ``--stream`` (64 MiB chunks) with a manifest and
+    then ``--resume``, ``--multihost`` and ``--stream --multihost`` at one
+    process, ``--distributed`` without a launcher and under ``python -m
+    torch.distributed.run --nproc-per-node 1`` (NCCL, seen in NCCL's log),
+    and ``--capacity 256 --drain`` on the dense 64 MiB text; every result
+    held against the numpy reference, every ``--time`` line printed;
 (e) times every kernel and its plain version with CUDA events (K4 / K10a
     at m = 16, 64 and 256, K9 beside them, K10c beside K6; each also by its
     own device time per call from torch.profiler, its time in the JSON
@@ -137,11 +147,15 @@ before (g) and read after it, K1's, K11a's and K11d's zeroed before
 the path of (h) and read after it, and all zeroed again before the four
 streams of (i) and read after them (K1, K3, K4, K5 and K6 must rise; the
 JSON line's ``stream_launches``), and again before (j) and read after its
-runs (the same five must rise; ``dist_launches``): each kernel must have been launched by
+runs (the same five must rise; ``dist_launches``), and again just before
+the in-process command line of (k) and read just after it (K1 must rise;
+``cli_launches``): each kernel must have been launched by
 the main-path run that exercises it.  Every printed line is flushed at
 once, so a failure leaves the lines before it and its traceback on
 stderr.  In a directory without the port (``chip_smoke.py`` alone) the
-script exits 1 at its first import of the repo, before printing a line.  Prints the card's name and power
+script exits 1 at its first import of the repo (the timers of
+``…_torch/utils/profiling.py``, imported with the module), before printing
+a line.  Prints the card's name and power
 limit, one JSON line describing the kernels (with each one's bound: the
 larger of its bytes over the card's 3.35 TB/s and its integer operations
 over the INT32 instruction rate), and as the last line
@@ -151,9 +165,9 @@ without CUDA the script exits with code 2 before printing any result.
 
 from __future__ import annotations
 
-import collections
 import contextlib
 import functools
+import io
 import json
 import os
 import shutil
@@ -162,6 +176,15 @@ import subprocess
 import sys
 import tempfile
 import time
+
+# kernel_ab.py reads these timers from this module too.
+from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.utils.profiling import (
+    cuda_ms,
+    device_busy,
+    device_profile,
+    host_ms,
+    kernel_device_ms,
+)
 
 PKG = "parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch"
 REF = "parallel_implementation_of_string_matching_algorithms_opencl_tpu"
@@ -266,66 +289,6 @@ def spread(text: bytes, k: int, m: int) -> list[bytes]:
             for i in range(k)]
 
 
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn()`` in ms over ``iters`` calls (CUDA
-    events around the whole batch, after ``warmup`` calls)."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def host_ms(fn, iters: int, passes: int = 3) -> list[float]:
-    """Per-pass mean wall time of ``fn()`` in ms (host clock, ending in a
-    device synchronize), after one warm call."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    out = []
-    for _ in range(passes):
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        out.append((time.perf_counter() - t0) * 1e3 / iters)
-    return out
-
-
-def kernel_device_ms(fn, runs: int, name: str, wrapper) -> tuple[float, int]:
-    """(device ms per launch, launches recorded) of the kernels whose name
-    holds ``name`` over ``runs`` calls of ``fn()`` under torch.profiler:
-    the kernel's own time, without the host's launch path.  ``wrapper``'s
-    launch count must rise by one per call.  The profiler can drop a few
-    of the card's activity records, so the time is the mean over the
-    launches it recorded, of which there must be at least one and at most
-    one per call."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    before = wrapper.launches
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    assert wrapper.launches - before == runs, (
-        f"{name}: {wrapper.launches - before} launches in {runs} calls")
-    mine = [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
-    assert 1 <= len(mine) <= runs, f"{name}: {len(mine)} kernels in {runs} calls"
-    return sum(e.time_range.elapsed_us() for e in mine) / 1e3 / len(mine), len(mine)
-
-
 RAGGED_PATTERNS = (b"e", b"quick brown fox ", b"ab\x00\x00",
                    bytes(range(1, 256)) + bytes(range(1, 255)))  # m = 509
 KMP_RAGGED_M = (1, 2, 5, 16, 17, 31, 32, 33, 64, 255, 256)
@@ -373,48 +336,6 @@ def placed(words, where: str, dev):
         region = buf[lead : lead + n]
     region.copy_(torch.from_numpy(words.copy()))
     return region
-
-
-def device_profile(fn, runs: int) -> tuple[float, float, dict]:
-    """(device ms per run, device events per run, device ms per run of the
-    six event names that take the most) of ``fn()`` under torch.profiler:
-    the summed durations of the events that ran on the card (kernels,
-    copies, memsets), each counted once."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    split, events = collections.Counter(), 0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            split[e.name] += e.time_range.elapsed_us() / 1e3 / runs
-            events += 1
-    return sum(split.values()), events / runs, dict(split.most_common(6))
-
-
-def device_busy(prof) -> tuple[float, float, int, dict]:
-    """(busy ms, summed ms, events, summed ms of the six event names that
-    take the most) of the card's events in a torch.profiler trace: busy is
-    the union of their intervals, so a copy that overlaps a kernel counts
-    once there and twice in the sum."""
-    import torch
-
-    spans, split = [], collections.Counter()
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            spans.append((e.time_range.start, e.time_range.end))
-            split[e.name] += e.time_range.elapsed_us() / 1e3
-    busy, end = 0.0, float("-inf")
-    for lo, hi in sorted(spans):
-        if hi > end:
-            busy += hi - max(lo, end)
-            end = hi
-    return busy / 1e3, sum(split.values()), len(spans), dict(split.most_common(6))
 
 
 def by_capacity(w, chunk: int, cap: int):
@@ -754,7 +675,132 @@ def dist_phase(workdir: str, eng: bytes, eng_pat: bytes, big: bytes, c2_pats, c2
     return launches
 
 
+def cli_phase(workdir: str, eng: bytes, eng_pat: bytes, c2_pats, c2_cap: int, c2_want,
+              dense_text: bytes, dense_pat: bytes, kernels: dict, zero_counts,
+              card: str, chunk: int) -> dict:
+    """Phase (k): the port's command line on the card, over ``eng`` written
+    to ``workdir`` and the files of (i) there (config 2's corpus and the
+    dense text).  One in-process ``cli.main`` call (the default ``bm``),
+    the launch counters zeroed just before it and returned as read just
+    after it (K1 must rise); then ``python -m ...cli`` processes: each
+    algorithm, config 2's 8 patterns under ``rk``, ``--emission nib``,
+    ``--stream`` with a manifest and then ``--resume``, ``--multihost`` and
+    ``--stream --multihost`` at one process, ``--distributed`` without a
+    launcher and under ``torch.distributed.run --nproc-per-node 1`` (NCCL,
+    seen in NCCL's own log) and ``--capacity 256 --drain`` on the dense
+    text.  Every result is held against the numpy reference, every command
+    runs with ``--time`` and its line is printed."""
+    import numpy as np
+
+    from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch import cli
+
+    eng_path = os.path.join(workdir, "english.bin")
+    c2_path = os.path.join(workdir, "config2.bin")
+    dense_path = os.path.join(workdir, "dense.bin")
+    with open(eng_path, "wb") as f:
+        f.write(eng)
+    pat = eng_pat.decode()
+    eng_want = np_find_all(np.frombuffer(eng, np.uint8), eng_pat)
+    dense_want = np_find_all(np.frombuffer(dense_text, np.uint8), dense_pat)
+    cap = 65536
+
+    def hold(tag: str, rows, wants, algo: str, capacity: int = cap, by_chunk=False,
+             drained=False) -> None:
+        assert len(rows) == len(wants), f"(k) {tag}: {len(rows)} rows"
+        for row, w in zip(rows, wants):
+            if drained:
+                offs, ovf = w, False
+            elif by_chunk:
+                offs, ovf = by_capacity(w, chunk, capacity)
+            else:
+                offs, ovf = w[:capacity], len(w) > capacity
+            assert row["algo"] == algo, f"(k) {tag}: algo {row['algo']}"
+            assert (row["count"], row["overflow"]) == (len(w), ovf), (
+                f"(k) {tag} {row['pattern']!r}: count {row['count']} vs {len(w)}")
+            assert np.array_equal(np.asarray(row["offsets"], np.int64), offs), (
+                f"(k) {tag} {row['pattern']!r}: offsets")
+
+    # In process, the counters zeroed just before and read just after.
+    argv = ["bm", eng_path, pat, "--json", "--offsets", "-1", "--time"]
+    out, err = io.StringIO(), io.StringIO()
+    zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    dt = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in kernels.items()}
+    assert rc == 0 and launches["screen_cand_bsums"] > 0, (
+        f"(k) cli.main did not launch K1: {launches}")
+    hold("in process bm", [json.loads(x) for x in out.getvalue().splitlines()],
+         [eng_want], "boyer_moore")
+    print(f"(k) cli.main({argv[:1] + argv[2:]}) in process on {len(eng)} B English: "
+          f"count {len(eng_want)} == numpy reference, offsets equal; --time "
+          f"{err.getvalue().strip()!r}, call wall {dt:.3f} s; launches {launches} {card}")
+
+    env = dict(os.environ)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = os.pathsep.join([here, env.get("PYTHONPATH", "")])
+
+    def run(tag: str, argv, launcher=(), extra_env=None) -> list:
+        cmd = [sys.executable, *launcher, "-m", f"{PKG}.cli", *argv, "--json",
+               "--offsets", "-1", "--time"]
+        t0 = time.perf_counter()
+        p = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=here,
+                           env={**env, **(extra_env or {})})
+        dt = time.perf_counter() - t0
+        assert p.returncode == 0, f"(k) {tag}: rc {p.returncode}\n{p.stderr[-3000:]}"
+        timing = [x for x in p.stderr.splitlines() if x.endswith("GB/s")]
+        assert len(timing) == 1, f"(k) {tag}: --time lines {timing}"
+        print(f"(k) {tag}: --time {timing[0]!r}, process wall {dt:.2f} s {card}")
+        return [json.loads(x) for x in p.stdout.splitlines() if x.startswith("{")]
+
+    for algo in ALGOS:
+        hold(algo, run(f"{algo} 256 MiB english", [algo, eng_path, pat]), [eng_want], algo)
+    c2_args = ["rk", c2_path, *(p.decode() for p in c2_pats), "--capacity", str(c2_cap)]
+    hold("config 2", run("config 2 rk k=8 1 GB", c2_args), c2_want, "rabin_karp_multi",
+         capacity=c2_cap)
+    hold("nib", run("kmp --emission nib 256 MiB english",
+                    ["kmp", eng_path, pat, "--emission", "nib"]), [eng_want], "kmp")
+    man = os.path.join(workdir, "cli.json")
+    stream_args = [*c2_args[:-2], "--stream", "--chunk-mb", str(chunk >> 20),
+                   "--manifest", man]
+    first = run("config 2 rk --stream with a manifest", stream_args)
+    hold("stream", first, c2_want, "rabin_karp@stream", by_chunk=True)
+    with open(man) as f:
+        assert json.load(f)["next_chunk"] == -(-os.path.getsize(c2_path) // chunk)
+    again = run("config 2 rk --stream --resume", [*stream_args, "--resume"])
+    assert [{**r, "wall_s": 0} for r in again] == [{**r, "wall_s": 0} for r in first], (
+        "(k) the resumed stream differs")
+    hold("multihost", run("bm --multihost, one process", ["bm", eng_path, pat,
+                                                           "--multihost"]),
+         [eng_want], "bm@hosts1")
+    hold("stream multihost", run("kmp --stream --multihost, one process",
+                                 ["kmp", eng_path, pat, "--stream", "--multihost"]),
+         [eng_want], "kmp@stream", by_chunk=True)
+    hold("distributed", run("naive --distributed, no launcher",
+                            ["naive", eng_path, pat, "--distributed"]),
+         [eng_want], "naive@mesh1")
+    nccl_log = os.path.join(workdir, "nccl.%p.log")
+    hold("torchrun", run("kmp --distributed under torch.distributed.run --nproc-per-node 1",
+                         ["kmp", eng_path, pat, "--distributed"],
+                         launcher=("-m", "torch.distributed.run", "--standalone",
+                                   "--nproc-per-node", "1"),
+                         extra_env={"NCCL_DEBUG": "INFO", "NCCL_DEBUG_FILE": nccl_log}),
+         [eng_want], "kmp@mesh1")
+    logs = [os.path.join(workdir, x) for x in os.listdir(workdir) if x.startswith("nccl.")]
+    assert logs and any("NCCL INFO" in open(x).read() for x in logs), (
+        "(k) the launched rank made no NCCL communicator")
+    hold("drain", run(f"bm --capacity 256 --drain, dense {dense_pat!r} 64 MiB",
+                      ["bm", dense_path, dense_pat.decode(), "--capacity", "256",
+                       "--drain"]),
+         [dense_want], "boyer_moore", drained=True)
+    print(f"(k) every command line equals the numpy reference ({len(dense_want)} drained "
+          f"offsets at capacity 256); NCCL log {len(logs)} file(s)")
+    return launches
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     sys.stdout.reconfigure(line_buffering=True)
     import torch
 
@@ -1712,6 +1758,12 @@ def main() -> int:
         launches_j = dist_phase(stream_dir, eng, b"quick brown fox ", big, c2_pats, c2_cfg,
                                 c2_want, dense_text, dense_pat, kernels, zero_counts, card)
         print(f"(j) {time.perf_counter() - t_j:.1f} s for (j) {card}")
+        # -- (k) the command line, counters zeroed ----------------------------
+        t_k = time.perf_counter()
+        launches_k = cli_phase(stream_dir, eng, b"quick brown fox ", c2_pats, c2_cap,
+                               c2_want, dense_text, dense_pat, kernels, zero_counts,
+                               card, DEFAULT_CHUNK_BYTES)
+        print(f"(k) {time.perf_counter() - t_k:.1f} s for (k) {card}")
     finally:
         shutil.rmtree(stream_dir, ignore_errors=True)
 
@@ -2107,6 +2159,8 @@ def main() -> int:
                                        "_proto_screen_kernel (pallas_call :122)"),
                "gather_verify": ("swar.cu", "exp/proto_kernels.py:157 _gv_kernel "
                                  "(pallas_call :227)")}
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to the "
+          f"kernels line {card}")
     print(nvidia_smi())
     # No single PyTorch call computes any of these functions: library_ms null.
     print(json.dumps({"kernels": [
@@ -2116,7 +2170,7 @@ def main() -> int:
          "max_abs_err": errs[k], "ms": ms[k], "plain_ms": plain_ms[k],
          "bound_ms": bounds[k][0], "bound_by": bounds[k][1], "library_ms": None,
          "shape": f"256 MiB english {shape[k]}", "stream_launches": launches_i.get(k, 0),
-         "dist_launches": launches_j.get(k, 0)}
+         "dist_launches": launches_j.get(k, 0), "cli_launches": launches_k.get(k, 0)}
         for k, (src, ref) in sources.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,13 @@ process group, one rank per device (NCCL on the card, gloo on the CPU):
 ``match_distributed`` (``parallel/dist.py``: shards with halos from the
 neighbouring ranks) and ``match_multihost`` / ``match_multihost_streaming``
 (``parallel/multihost.py``: each rank's slice of a shared file).  The scans run on hand-written CUDA kernels for
-Hopper, K1-K11d, five ``__global__`` templates in ``csrc/``.
+Hopper, K1-K11d, five ``__global__`` templates in ``csrc/``.  Around them:
+the command line ``cli.py`` (the repo's ``cli.py`` on the port: ``python
+-m <package>.cli`` or ``tpumatch-torch``; ``--distributed`` is one rank per
+device under ``torchrun``), ``utils/profiling.py`` (``torch.profiler``
+traces, the pipelined ``timed``, ``device_stats`` and the card's timers)
+and ``utils/native.py`` (the binding to ``native/``'s serial baselines,
+tables and chunk reader).
 The output contract is the reference's: the exact count, the sorted 0-based
 byte offsets of every overlapping match up to ``capacity``, an overflow
 flag, and every offset with ``drain=True``.

@@ -21,10 +21,6 @@ from ..models.registry import cached_matcher, get_matcher
 from ..utils.config import DEFAULT_CONFIG
 from .mesh import DataMesh, all_gather, make_data_mesh, rank_device
 
-# Set once this module has created the process group, so that a second
-# call never initializes it again.
-_initialized = False
-
 
 def initialize_cluster(
     coordinator_address: str | None = None,
@@ -33,7 +29,8 @@ def initialize_cluster(
     backend: str | None = None,
     device=None,
 ) -> dict:
-    """Create the process group (idempotent).
+    """Create the process group unless one is initialized (idempotent; a
+    call after ``destroy_process_group`` makes a new one).
 
     The topology comes from the arguments or the environment alone
     (``TPUMATCH_NUM_PROCESSES``, ``TPUMATCH_COORDINATOR`` as ``host:port``,
@@ -43,8 +40,6 @@ def initialize_cluster(
     CUDA device) is a CUDA device and to ``gloo`` for ``device="cpu"``;
     neither stands in for the other.  Returns the reference's topology
     facts; a rank drives one device."""
-    global _initialized
-
     if num_processes is None:
         env_np = os.environ.get("TPUMATCH_NUM_PROCESSES")
         num_processes = int(env_np) if env_np else None
@@ -63,8 +58,7 @@ def initialize_cluster(
             "initialize_cluster: coordinator_address/process_id given "
             "without num_processes (set it or TPUMATCH_NUM_PROCESSES)"
         )
-    if (not _initialized and not dist.is_initialized()
-            and (num_processes or 1) > 1):
+    if not dist.is_initialized() and (num_processes or 1) > 1:
         if process_id is None:
             raise ValueError("initialize_cluster: process_id is required "
                              "with num_processes > 1")
@@ -84,7 +78,6 @@ def initialize_cluster(
             rank=process_id,
             device_id=dev if backend == "nccl" else None,
         )
-        _initialized = True
     pid, pc = ((dist.get_rank(), dist.get_world_size())
                if dist.is_initialized() else (0, 1))
     return {"process_id": pid, "process_count": pc, "local_devices": 1,

@@ -1162,3 +1162,88 @@ def test_sharded_paths_on_a_one_rank_nccl_group(cuda_device, stream_file):
                               big[:2])
     finally:
         dist.destroy_process_group()
+
+
+# -- utils/profiling.py, utils/native.py and the command line on the card ----
+
+
+def test_timed_and_device_stats_on_a_card_match(cuda_device):
+    """``timed`` and ``device_stats`` of ``match`` on the card: the output
+    equals the oracle, K1 ran once per call, the profiler saw the card's
+    events and the idle share lies in [0, 1]."""
+    import functools
+
+    from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.utils import (
+        profiling,
+    )
+
+    text = bytes(gen_english(4 << 20, seed=23))
+    pat = b"quick brown fox "
+    fn = functools.partial(match, device=cuda_device)
+    secs, r = profiling.timed(fn, text, pat, iters=3)
+    assert secs > 0 and r.offsets_list() == find_all(text, pat)
+    k1 = swar.screen_cand_bsums.launches
+    stats = profiling.device_stats(fn, text, pat, runs=3)
+    assert swar.screen_cand_bsums.launches == k1 + 4  # the warm call and 3 runs
+    assert stats["device"] == torch.cuda.get_device_name(0)
+    assert stats["device_ms"] > 0 and stats["device_events"] >= 1
+    assert 0 < stats["busy_ms"] <= stats["wall_ms"]
+    assert 0 <= stats["idle_share"] <= 1 and stats["peak_bytes"] >= len(text)
+    assert 1 <= len(stats["top_events"]) <= 6
+    assert 0 < sum(stats["top_events"].values()) <= stats["device_ms"] + 1e-9
+    assert stats["argument_size_bytes"] == len(text) + len(pat)
+    assert stats["output_size_bytes"] == 8 * r.count + len(pat)
+
+
+def test_card_timers_time_a_kernel(cuda_device):
+    """The timers moved from ``chip_smoke.py`` on K3: CUDA events, the host
+    clock, its own device time by name, and device time per run."""
+    from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.utils import (
+        profiling,
+    )
+
+    words, limit, P, M = _region(4 * TILE, b"quick brown fox ", cuda_device)
+    fn = lambda: swar.naive_bsums(words, limit, P, M)  # noqa: E731
+    assert profiling.cuda_ms(fn, 5) > 0
+    assert all(t > 0 for t in profiling.host_ms(fn, 3, passes=2))
+    t, seen = profiling.kernel_device_ms(fn, 5, "naive_kernel", swar.naive_bsums)
+    assert t > 0 and 1 <= seen <= 5
+    dev_ms, per_run, split = profiling.device_profile(fn, 5)
+    assert dev_ms > 0 and per_run >= 1 and any("naive_kernel" in k for k in split)
+    with pytest.raises(ValueError, match="CPU tensors"):
+        profiling.cuda_ms(lambda: torch.ones(4), 2)
+
+
+def test_native_reader_fills_a_pinned_buffer(cuda_device, tmp_path):
+    """``NativeFile.read_chunk`` into the numpy view of a pinned tensor,
+    copied to the card."""
+    from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.utils import (
+        native,
+    )
+
+    if native.load() is None:
+        pytest.skip("native library unavailable")
+    data = bytes(gen_english(1 << 20, seed=3))
+    p = tmp_path / "c.bin"
+    p.write_bytes(data)
+    host = torch.empty(1 << 20, dtype=torch.uint8, pin_memory=True)
+    with native.NativeFile(str(p)) as f:
+        _buf, got = f.read_chunk(0, 1 << 20, host.numpy())
+    assert got == len(data)
+    assert host.to(cuda_device, non_blocking=True).cpu().numpy().tobytes() == data
+
+
+def test_command_line_on_the_card(cuda_device, tmp_path, capsys):
+    """``cli.main`` with its default device runs K1 for the default
+    ``bm`` and prints the oracle's count and offsets."""
+    from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch import cli
+
+    data = bytes(gen_english(4 << 20, seed=29))
+    p = tmp_path / "c.bin"
+    p.write_bytes(data)
+    k1 = swar.screen_cand_bsums.launches
+    assert cli.main(["bm", str(p), "quick brown fox ", "--json", "--offsets", "-1"]) == 0
+    row = json.loads(capsys.readouterr().out)
+    assert swar.screen_cand_bsums.launches == k1 + 1
+    want = find_all(data, b"quick brown fox ")
+    assert (row["count"], row["offsets"], row["algo"]) == (len(want), want, "boyer_moore")

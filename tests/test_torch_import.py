@@ -25,9 +25,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_port_never_imports_jax():
-    """Every module of the port, imported in a fresh interpreter (the test
-    process itself already holds jax, see conftest.py), leaves jax, the
-    JAX package and the top-level ``exp/`` scripts out of sys.modules."""
+    """Every module of the port (the command line, ``utils/profiling.py``
+    and ``utils/native.py`` among them), imported in a fresh interpreter
+    (the test process itself already holds jax, see conftest.py), leaves
+    jax, the JAX package, the top-level ``exp/`` scripts and the root
+    ``cli.py`` out of sys.modules."""
     code = textwrap.dedent(f"""
         import importlib, pkgutil, sys
         import {port.__name__} as p
@@ -38,10 +40,12 @@ def test_port_never_imports_jax():
         assert p.__name__ + ".exp.proto_kernels" in names, names
         for mod in ("streaming", "dist", "mesh", "multihost"):
             assert p.__name__ + ".parallel." + mod in names, names
+        for mod in ("cli", "utils.profiling", "utils.native"):
+            assert p.__name__ + "." + mod in names, names
         bad = sorted(k for k in sys.modules if k == "jax" or k.startswith("jax.")
                      or k.startswith("jaxlib")
                      or k.startswith("parallel_implementation_of_string_matching_algorithms_opencl_tpu.")
-                     or k.split(".")[0] in ("exp", "screen_kernel_opt", "proto_kernels"))
+                     or k.split(".")[0] in ("exp", "screen_kernel_opt", "proto_kernels", "cli"))
         assert not bad, bad
         print("ok", len(names))
     """)

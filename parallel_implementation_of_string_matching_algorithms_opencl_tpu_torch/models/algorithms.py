@@ -42,6 +42,7 @@ from ..ops import rabin_karp as rk_ops
 from ..ops import reconstruct
 from ..ops import tables
 from ..utils.config import DEFAULT_CONFIG, MatchConfig
+from ..utils.profiling import span
 from .base import Matcher
 from .registry import register_matcher
 
@@ -138,11 +139,14 @@ class NaiveMatcher(_RegionMatcher):
         limit = min(n - m, cut - 1)
         region = text.view(torch.int32)[: Nk // 4]
         P = self.dev_tables["swar_p"]
-        tail = naive_ops.naive_start_mask(text[cut:], self.pattern_dev)
+        with span("tpumatch.tail"):
+            tail = naive_ops.naive_start_mask(text[cut:], self.pattern_dev)
         if self.config.emission == "nib":
-            nib, bs = swar.naive_nib(region, limit, P, self.swar_m)
+            with span("tpumatch.scan"):
+                nib, bs = swar.naive_nib(region, limit, P, self.swar_m)
             return self._nib_and_tail(nib, bs, n, cut, tail)
-        bs = swar.naive_bsums(region, limit, P, self.swar_m)
+        with span("tpumatch.scan"):
+            bs = swar.naive_bsums(region, limit, P, self.swar_m)
         return self._region_and_tail(bs, text, n, cut, tail)
 
 
@@ -184,11 +188,14 @@ class RabinKarpMatcher(_RegionMatcher):
         region = text.view(torch.int32)[: Nk // 4]
         limit = min(n - m, cut - 1)
         target = self.dev_tables["pattern_hash"].reshape(1)
-        tail = self._mask(text[cut:])
+        with span("tpumatch.tail"):
+            tail = self._mask(text[cut:])
         if cfg.emission == "nib":
             # The count comes from the verify, never from bs: hash hits are
             # candidates.
-            nib, bs = rk_roll.rk_candidate_nib(region, limit, target, m, base)
+            with span("tpumatch.scan"):
+                nib, bs = rk_roll.rk_candidate_nib(region, limit, target, m,
+                                                   base)
             n_cand, cand, _ = emit.nibble_to_matches(nib, bs,
                                                      cfg.verify_capacity)
             c1, o1, v1 = rk_ops.verify_region(
@@ -196,7 +203,8 @@ class RabinKarpMatcher(_RegionMatcher):
                 cfg.verify_capacity, cfg.capacity)
             return emit.merge_tail(c1, o1, v1, cut, n, m, cfg.capacity, tail)
         # Hash hits are candidates: extract_region verifies and recounts.
-        bs = rk_roll.rk_candidate_bsums(region, limit, target, m, base)
+        with span("tpumatch.scan"):
+            bs = rk_roll.rk_candidate_bsums(region, limit, target, m, base)
         return self._region_and_tail(bs, text, n, cut, tail)
 
 
@@ -260,14 +268,18 @@ class KMPMatcher(_RegionMatcher):
         if Nk == 0:
             return None
         region = text.view(torch.int32)[: Nk // 4]
-        tail = self._mask(text[cut:])
+        with span("tpumatch.tail"):
+            tail = self._mask(text[cut:])
         if self.config.emission == "nib":  # mk == m: never the screen
-            nib, bs = shift_and.kmp_nib(region, min(n - m, cut - 1), bt, m)
+            with span("tpumatch.scan"):
+                nib, bs = shift_and.kmp_nib(region, min(n - m, cut - 1), bt,
+                                            m)
             return self._nib_and_tail(nib, bs, n, cut, tail)
         # The kernel's own clamp, min(n, Nk) - mk: for the screen it counts
         # prefix starts in (n - m, n - 32] too, which extract_region's
         # limit min(n - m, cut - 1) rejects.
-        bs = shift_and.kmp_bsums(region, min(n, Nk) - mk, bt, mk)
+        with span("tpumatch.scan"):
+            bs = shift_and.kmp_bsums(region, min(n, Nk) - mk, bt, mk)
         return self._region_and_tail(bs, text, n, cut, tail)
 
 
@@ -353,12 +365,15 @@ class BoyerMooreMatcher(_RegionMatcher):
         # extract_region's limit.
         args = (text.view(torch.int32)[: Nk // 4], min(n - m, cut - 1),
                 t["swar_p"], self.swar_m, t["probes"])
-        tail = naive_ops.naive_start_mask(text[cut:], self.pattern_dev)
+        with span("tpumatch.tail"):
+            tail = naive_ops.naive_start_mask(text[cut:], self.pattern_dev)
         if cfg.emission == "nib":
-            nib, bs = swar.screened_nib(*args)
+            with span("tpumatch.scan"):
+                nib, bs = swar.screened_nib(*args)
             return self._nib_and_tail(nib, bs, n, cut, tail)
-        if cfg.bm_screen == "fused" or cfg.bm_probes == "table_dyn":
-            bs = swar.screened_bsums(*args)
-        else:
-            bs = swar.screen_cand_bsums(*args)
+        with span("tpumatch.scan"):
+            if cfg.bm_screen == "fused" or cfg.bm_probes == "table_dyn":
+                bs = swar.screened_bsums(*args)
+            else:
+                bs = swar.screen_cand_bsums(*args)
         return self._region_and_tail(bs, text, n, cut, tail)

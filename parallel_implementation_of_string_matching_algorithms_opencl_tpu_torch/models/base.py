@@ -19,6 +19,7 @@ import torch
 from ..ops import emit
 from ..utils.config import DEFAULT_CONFIG, MatchConfig
 from ..utils.io import as_byte_array, pad_to_multiple
+from ..utils.profiling import span
 
 
 def resolve_device(device) -> torch.device:
@@ -43,6 +44,16 @@ def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
         warnings.filterwarnings("ignore", message=".*not writable.*")
         host = torch.from_numpy(arr)
     return host.to(device)
+
+
+def stage(arr: np.ndarray, multiple: int, device: torch.device) -> torch.Tensor:
+    """The host bytes ``arr`` padded to ``multiple`` and copied to
+    ``device``: what ``match`` hands ``run``."""
+    with span("tpumatch.stage"):
+        with span("tpumatch.stage.pad"):
+            padded = pad_to_multiple(arr, multiple)
+        with span("tpumatch.stage.copy"):
+            return to_device(padded, device)
 
 
 def valid_prefix(off: np.ndarray) -> np.ndarray:
@@ -78,7 +89,8 @@ def make_result(algo: str, pattern: bytes, n: int, count: int,
                 offsets: torch.Tensor, overflow: bool) -> MatchResult:
     """``MatchResult`` from a ``run`` triple: the offsets' valid prefix on
     the host, and overflow also when that prefix is short of the count."""
-    offs = valid_prefix(offsets.cpu().numpy())
+    with span("tpumatch.result"):
+        offs = valid_prefix(offsets.cpu().numpy())
     return MatchResult(algo=algo, pattern=pattern, n=n, count=count,
                        offsets=offs, overflow=bool(overflow) or len(offs) < count)
 
@@ -140,18 +152,20 @@ class Matcher:
         """Device-resident pipeline: ``text`` is the padded uint8 text on
         ``self.device`` (length a multiple of 4096), ``n`` its logical
         length.  Returns (count, int64 offsets tensor, overflow)."""
-        direct = self._direct(text, n)
-        if direct is not None:
-            return direct
-        mask = emit.valid_start_mask(self._mask(text), n, self.m)
-        return emit.mask_to_matches_sorted(mask, self.config.capacity)
+        with span("tpumatch.run"):
+            direct = self._direct(text, n)
+            if direct is not None:
+                return direct
+            mask = emit.valid_start_mask(self._mask(text), n, self.m)
+            return emit.mask_to_matches_sorted(mask, self.config.capacity)
 
     def match(self, data) -> MatchResult:
-        arr = as_byte_array(data)
-        n = len(arr)
-        padded = pad_to_multiple(arr, self._pad_target(n))
-        return make_result(self.name, self.pattern_bytes, n,
-                           *self.run(to_device(padded, self.device), n))
+        with span("tpumatch.match"):
+            arr = as_byte_array(data)
+            n = len(arr)
+            text = stage(arr, self._pad_target(n), self.device)
+            return make_result(self.name, self.pattern_bytes, n,
+                               *self.run(text, n))
 
     def match_all(self, data) -> MatchResult:
         """Like ``match`` but returns EVERY offset even when the count

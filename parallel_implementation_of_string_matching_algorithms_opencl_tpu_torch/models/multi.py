@@ -41,9 +41,11 @@ from ..kernels import rk_roll, shift_and, swar
 from ..ops import emit, reconstruct, tables
 from ..ops import rabin_karp as rk_ops
 from ..utils.config import DEFAULT_CONFIG, MatchConfig
-from ..utils.io import as_byte_array, pad_to_multiple
+from ..utils.io import as_byte_array
+from ..utils.profiling import span
 from .algorithms import RabinKarpMatcher, tables_from_reference
-from .base import MatchResult, make_result, pad_target, resolve_device, to_device
+from .base import (MatchResult, make_result, pad_target, resolve_device, stage,
+                   to_device)
 
 
 class RabinKarpMultiMatcher:
@@ -99,63 +101,70 @@ class RabinKarpMultiMatcher:
         ``self.device`` (length a multiple of 4096), ``n`` its logical
         length.  Returns k (count, int64 offsets tensor, overflow) triples
         in pattern order, each as ``Matcher.run`` returns it."""
-        cfg, m = self.config, self.m
-        Nk, cut = shift_and.kernel_region(text.shape[0], m,
-                                          cfg.pallas_chunk_bytes)
-        if not rk_roll.rk_roll_supported(m) or Nk == 0:
+        with span("tpumatch.run"):
+            cfg, m = self.config, self.m
+            Nk, cut = shift_and.kernel_region(text.shape[0], m,
+                                              cfg.pallas_chunk_bytes)
+            if not rk_roll.rk_roll_supported(m) or Nk == 0:
+                return [
+                    emit.mask_to_matches_sorted(emit.valid_start_mask(mk, n, m),
+                                                cfg.capacity)
+                    for mk in self._masks(text)
+                ]
+            base = int(tables.RK_BASE) if cfg.rk_base is None else cfg.rk_base
+            words = text.view(torch.int32)
+            limit = min(n - m, cut - 1)
+            hashes = self.dev_tables["hashes"]
+            if cfg.emission == "nib":
+                with span("tpumatch.scan"):
+                    nib, bs = rk_roll.rk_candidate_nib(words[: Nk // 4], limit,
+                                                       hashes, m, base)
+                n_cand, cand, _ = emit.nibble_to_matches(nib, bs,
+                                                         cfg.verify_capacity)
+                regions = [
+                    rk_ops.verify_region(text, pat, cand, n_cand, limit,
+                                         cfg.verify_capacity, cfg.capacity)
+                    for pat in self.patterns_dev
+                ]
+            elif cfg.multi_gather == "groups" and self.swar_m.shape[1] <= 9:
+                # The reference's gate: its 16-word group slab holds the
+                # compare chain only for nw <= 9 pattern words (m <= 33).
+                with span("tpumatch.scan"):
+                    bm = rk_roll.rk_candidate_bmask(words[: Nk // 4], limit,
+                                                    hashes, m, base)
+                regions = reconstruct.extract_region_multi_groups(
+                    bm, reconstruct.full_words2d(words),
+                    self.dev_tables["swar_ps"], self.swar_m, m, limit,
+                    cfg.capacity,
+                )
+            else:
+                pmask = (cfg.multi_gather == "pselect"
+                         and self.k <= rk_roll.MAX_PMASK_PATTERNS)
+                screen = (rk_roll.rk_candidate_pmask if pmask
+                          else rk_roll.rk_candidate_bsums)
+                with span("tpumatch.scan"):
+                    bs = screen(words[: Nk // 4], limit, hashes, m, base)
+                regions = reconstruct.extract_region_multi(
+                    bs, reconstruct.full_words2d(words),
+                    self.dev_tables["swar_ps"], self.swar_m, m, limit,
+                    cfg.capacity, pmask,
+                )
+            with span("tpumatch.tail"):
+                tails = self._masks(text[cut:])
             return [
-                emit.mask_to_matches_sorted(emit.valid_start_mask(mk, n, m),
-                                            cfg.capacity)
-                for mk in self._masks(text)
+                emit.merge_tail(*region, cut, n, m, cfg.capacity, tail)
+                for region, tail in zip(regions, tails)
             ]
-        base = int(tables.RK_BASE) if cfg.rk_base is None else cfg.rk_base
-        words = text.view(torch.int32)
-        limit = min(n - m, cut - 1)
-        hashes = self.dev_tables["hashes"]
-        if cfg.emission == "nib":
-            nib, bs = rk_roll.rk_candidate_nib(words[: Nk // 4], limit, hashes,
-                                               m, base)
-            n_cand, cand, _ = emit.nibble_to_matches(nib, bs,
-                                                     cfg.verify_capacity)
-            regions = [
-                rk_ops.verify_region(text, pat, cand, n_cand, limit,
-                                     cfg.verify_capacity, cfg.capacity)
-                for pat in self.patterns_dev
-            ]
-        elif cfg.multi_gather == "groups" and self.swar_m.shape[1] <= 9:
-            # The reference's gate: its 16-word group slab holds the
-            # compare chain only for nw <= 9 pattern words (m <= 33).
-            bm = rk_roll.rk_candidate_bmask(words[: Nk // 4], limit, hashes,
-                                            m, base)
-            regions = reconstruct.extract_region_multi_groups(
-                bm, reconstruct.full_words2d(words),
-                self.dev_tables["swar_ps"], self.swar_m, m, limit,
-                cfg.capacity,
-            )
-        else:
-            pmask = (cfg.multi_gather == "pselect"
-                     and self.k <= rk_roll.MAX_PMASK_PATTERNS)
-            screen = (rk_roll.rk_candidate_pmask if pmask
-                      else rk_roll.rk_candidate_bsums)
-            bs = screen(words[: Nk // 4], limit, hashes, m, base)
-            regions = reconstruct.extract_region_multi(
-                bs, reconstruct.full_words2d(words),
-                self.dev_tables["swar_ps"], self.swar_m, m, limit,
-                cfg.capacity, pmask,
-            )
-        return [
-            emit.merge_tail(*region, cut, n, m, cfg.capacity, tail)
-            for region, tail in zip(regions, self._masks(text[cut:]))
-        ]
 
     def match(self, data) -> list[MatchResult]:
         """One ``MatchResult`` per pattern, in pattern order.  The text is
         padded as ``RabinKarpMatcher`` pads it, so the tail is m - 1 bytes
         once the text fills a kernel tile."""
-        arr = as_byte_array(data)
-        n = len(arr)
-        tile = RabinKarpMatcher._tile_bytes(self.config)
-        padded = pad_to_multiple(arr, pad_target(n, self.config, tile))
-        out = self.run(to_device(padded, self.device), n)
-        return [make_result(self.name, p, n, *triple)
-                for p, triple in zip(self.patterns, out)]
+        with span("tpumatch.match"):
+            arr = as_byte_array(data)
+            n = len(arr)
+            tile = RabinKarpMatcher._tile_bytes(self.config)
+            text = stage(arr, pad_target(n, self.config, tile), self.device)
+            out = self.run(text, n)
+            return [make_result(self.name, p, n, *triple)
+                    for p, triple in zip(self.patterns, out)]

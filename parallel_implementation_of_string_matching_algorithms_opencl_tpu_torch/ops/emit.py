@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import span
 from . import extract
 
 
@@ -45,11 +46,12 @@ def merge_tail(c1, o1, v1, cut: int, n: int, m: int, capacity: int,
     ``tail_mask`` over the tail [cut, N) of a text of logical length n."""
     if tail_mask.shape[0] == 0:
         return c1, o1, v1
-    tail_valid = valid_start_mask(tail_mask, n - cut, m)
-    c2, o2, v2 = mask_to_matches_sorted(
-        tail_valid, min(capacity, tail_mask.shape[0])
-    )
-    return merge_region_matches(c1, o1, v1, c2, o2, v2, capacity, cut)
+    with span("tpumatch.tail"):
+        tail_valid = valid_start_mask(tail_mask, n - cut, m)
+        c2, o2, v2 = mask_to_matches_sorted(
+            tail_valid, min(capacity, tail_mask.shape[0])
+        )
+        return merge_region_matches(c1, o1, v1, c2, o2, v2, capacity, cut)
 
 
 def nibble_to_matches(nib: torch.Tensor, bs: torch.Tensor, capacity: int):

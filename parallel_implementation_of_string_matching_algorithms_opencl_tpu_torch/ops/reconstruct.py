@@ -28,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import swar
+from ..utils.profiling import span
 from . import emit, extract
 
 # Gather width in 4 KiB chunks, by text size class (the reference's
@@ -93,20 +94,21 @@ def extract_region(bs, x2d, P, M, m: int, limit: int, capacity: int):
     word view of the whole padded text (``full_words2d``).  ``limit``: the
     largest valid start, min(n-m, cut-1).  The count is exact; offsets are
     the ascending first ``capacity`` matches."""
-    Mnp = swar.mask_words(m)
-    Lr = bs.shape[0] // 8
-    chunkc = bs.view(Lr, 8).sum(1)
-    cap_g = min(
-        SPARSE_CHUNKS_SMALL if Lr <= SMALL_TEXT_CHUNKS else SPARSE_CHUNKS,
-        Lr,
-    )
-    gids = extract.sorted_nonzero_ids(chunkc)
-    if gids.numel() > cap_g:
-        return _dense(bs.shape[0], x2d, P, M, limit, capacity)
-    nib = _verify_chunks(x2d, gids, P, M, Mnp, limit)
-    pos = extract.nib_positions(nib, gids * 4096)
-    count = pos.numel()
-    return count, pos[:capacity], count > capacity
+    with span("tpumatch.extract"):
+        Mnp = swar.mask_words(m)
+        Lr = bs.shape[0] // 8
+        chunkc = bs.view(Lr, 8).sum(1)
+        cap_g = min(
+            SPARSE_CHUNKS_SMALL if Lr <= SMALL_TEXT_CHUNKS else SPARSE_CHUNKS,
+            Lr,
+        )
+        gids = extract.sorted_nonzero_ids(chunkc)
+        if gids.numel() > cap_g:
+            return _dense(bs.shape[0], x2d, P, M, limit, capacity)
+        nib = _verify_chunks(x2d, gids, P, M, Mnp, limit)
+        pos = extract.nib_positions(nib, gids * 4096)
+        count = pos.numel()
+        return count, pos[:capacity], count > capacity
 
 
 def extract_region_multi(bs, x2d, Ps, M, m: int, limit: int, capacity: int,
@@ -140,35 +142,37 @@ def extract_region_multi_groups(bmask, x2d, Ps, M, m: int, limit: int,
     candidate, so its group is occupied.  More occupied groups than the
     gather width take ``extract_region`` on the block flags (and its K2
     rescan)."""
-    Mnp = swar.mask_words(m)
-    nw = Mnp.shape[1]
-    blocks = extract.sorted_nonzero_ids(bmask)
-    shifts = torch.arange(16, dtype=torch.int32, device=bmask.device)
-    bits = (bmask[blocks][:, None] >> shifts) & 1
-    occ = extract.sorted_nonzero_ids(bits.flatten())
-    gids = blocks[occ // 16] * 16 + occ % 16  # 16 * block + group, ascending
-    if gids.numel() > MULTI_BLOCK_TIER:
-        flags = (bmask != 0).to(torch.int32)
-        return [extract_region(flags, x2d, P, M, m, limit, capacity)
-                for P in Ps]
-    flat = x2d.view(-1)
-    idx = (gids[:, None] * GROUP_WORDS
-           + torch.arange(GROUP_WORDS + nw - 1, device=gids.device)[None, :])
-    slab = flat[idx.clamp(max=flat.numel() - 1)]
-    word_pos = (gids[:, None] * (4 * GROUP_WORDS)
-                + 4 * torch.arange(GROUP_WORDS, device=gids.device)[None, :])
-    out = []
-    for P in Ps:
-        nib = _verify_words(slab, word_pos, P, M, Mnp, limit)
-        pos = extract.nib_positions(nib, gids * (4 * GROUP_WORDS))
-        count = pos.numel()
-        out.append((count, pos[:capacity], count > capacity))
-    return out
+    with span("tpumatch.extract"):
+        Mnp = swar.mask_words(m)
+        nw = Mnp.shape[1]
+        blocks = extract.sorted_nonzero_ids(bmask)
+        shifts = torch.arange(16, dtype=torch.int32, device=bmask.device)
+        bits = (bmask[blocks][:, None] >> shifts) & 1
+        occ = extract.sorted_nonzero_ids(bits.flatten())
+        gids = blocks[occ // 16] * 16 + occ % 16  # 16 * block + group, ascending
+        if gids.numel() > MULTI_BLOCK_TIER:
+            flags = (bmask != 0).to(torch.int32)
+            return [extract_region(flags, x2d, P, M, m, limit, capacity)
+                    for P in Ps]
+        flat = x2d.view(-1)
+        idx = (gids[:, None] * GROUP_WORDS
+               + torch.arange(GROUP_WORDS + nw - 1, device=gids.device)[None, :])
+        slab = flat[idx.clamp(max=flat.numel() - 1)]
+        word_pos = (gids[:, None] * (4 * GROUP_WORDS)
+                    + 4 * torch.arange(GROUP_WORDS, device=gids.device)[None, :])
+        out = []
+        for P in Ps:
+            nib = _verify_words(slab, word_pos, P, M, Mnp, limit)
+            pos = extract.nib_positions(nib, gids * (4 * GROUP_WORDS))
+            count = pos.numel()
+            out.append((count, pos[:capacity], count > capacity))
+        return out
 
 
 def _dense(nb: int, x2d, P, M, limit: int, capacity: int):
     """Full naive rescan of the region's ``nb`` blocks (K2): exact verify
     of every position, then decode only the blocks that hold one of the
     first ``capacity`` matches."""
-    nib, bs2 = swar.naive_nib(x2d.view(-1)[: nb * 128], limit, P, M)
-    return emit.nibble_to_matches(nib, bs2, capacity)
+    with span("tpumatch.rescan"):
+        nib, bs2 = swar.naive_nib(x2d.view(-1)[: nb * 128], limit, P, M)
+        return emit.nibble_to_matches(nib, bs2, capacity)

@@ -6,6 +6,8 @@ and XLA's compiled-module cost analysis.  Here:
 
 - ``trace`` records a ``torch.profiler`` trace (CPU, and CUDA where a card
   is present) and exports it as a Chrome/Perfetto JSON file;
+- ``span`` names a layer of the port (``tpumatch.*``) in whatever
+  ``torch.profiler`` session is recording, on the device trace's clock;
 - ``timed`` is the reference's pipelined timer: ``iters`` dispatches, one
   synchronize;
 - ``device_stats`` takes ``compiled_stats``'s place with what the card
@@ -30,7 +32,14 @@ import time
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 from torch.profiler import ProfilerActivity, profile
+
+# A ``cpu_op`` in the profiler's trace: unlike ``record_function``'s
+# ``user_annotation``, the profiler does not project it onto the card's
+# timeline, so a span never counts as device work or covers an idle gap.
+_RecordFunctionFast = getattr(torch._C._profiler, "_RecordFunctionFast", None)
+_NULL = contextlib.nullcontext()
 
 
 def _activities() -> list:
@@ -61,6 +70,18 @@ def trace(log_dir: str | None = None):
             _sync()
     prof.export_chrome_trace(os.path.join(
         log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+
+def span(name: str):
+    """A context that records ``name`` (a ``tpumatch.*`` layer name) as a
+    host operation of the calling thread while a ``torch.profiler``
+    session records, nested in the spans that enclose it: the benchmark's
+    traced window, ``trace``, or an operator's own profiler.  With no
+    profiler recording it is one shared null context, and nothing is
+    recorded."""
+    if _RecordFunctionFast is None or not _autograd_profiler._is_profiler_enabled:
+        return _NULL
+    return _RecordFunctionFast(name)
 
 
 def timed(fn, *args, iters: int = 10, warmup: int = 1):

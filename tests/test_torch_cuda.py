@@ -1247,3 +1247,47 @@ def test_command_line_on_the_card(cuda_device, tmp_path, capsys):
     assert swar.screen_cand_bsums.launches == k1 + 1
     want = find_all(data, b"quick brown fox ")
     assert (row["count"], row["offsets"], row["algo"]) == (len(want), want, "boyer_moore")
+
+
+@pytest.mark.parametrize("case", ["bm", "rk_list"])
+def test_spans_on_the_card(case, cuda_device):
+    """``run`` of 16 MiB under torch.profiler with the card's activity:
+    no device event is a ``tpumatch.`` span (a ``cpu_op``, which the
+    profiler does not project onto the card's timeline), and every kernel
+    launch of the call lies inside some ``tpumatch.`` span."""
+    text = bytes(gen_english(16 << 20, seed=31))
+    n = len(text)
+    if case == "bm":
+        pats = [b"quick brown fox "]
+        m = BoyerMooreMatcher(pats[0], device=cuda_device)
+        mult = m._pad_target(n)
+    else:
+        pats = [b"quick brown fox ", b"lazy dog and cat", b"parallel device "]
+        m = RabinKarpMultiMatcher(pats, device=cuda_device)
+        mult = 128 * m.config.pallas_chunk_bytes
+    dev_text = torch.from_numpy(
+        pad_to_multiple(np.frombuffer(text, np.uint8), mult)).to(cuda_device)
+    m.run(dev_text, n)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out = m.run(dev_text, n)
+        torch.cuda.synchronize()
+    out = [out] if case == "bm" else out
+    for (count, offs, _ovf), pat in zip(out, pats):
+        want = find_all(text, pat)
+        assert (count, offs.cpu().tolist()) == (len(want), want)
+    events = list(prof.profiler.kineto_results.events())
+    cuda = torch.autograd.DeviceType.CUDA
+    assert not [e.name() for e in events if e.device_type() == cuda
+                and e.name().startswith("tpumatch.")]
+    assert any(e.device_type() == cuda for e in events)
+    spans = [(e.start_ns(), e.start_ns() + e.duration_ns()) for e in events
+             if e.device_type() != cuda and e.name().startswith("tpumatch.")]
+    launches = [e for e in events if e.device_type() != cuda
+                and "LaunchKernel" in e.name()]
+    assert spans and launches
+    for e in launches:
+        lo, hi = e.start_ns(), e.start_ns() + e.duration_ns()
+        assert any(a <= lo and hi <= b for a, b in spans), e.name()

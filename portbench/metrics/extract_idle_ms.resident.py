@@ -2,7 +2,8 @@
 inside ``tpumatch.extract`` (the port's extraction, ``ops/reconstruct``):
 the union of the spans' intervals less the union of the device events'
 intervals, over the queries.  None where the trace holds no ``tpumatch.``
-span, as a port without spans leaves it."""
+span, as a port without spans leaves it, or no device event, as a run
+without a card leaves it."""
 
 
 def _union(intervals) -> list:
@@ -16,8 +17,8 @@ def _union(intervals) -> list:
 
 
 def read(view):
-    if not view.queries or not any(h[0].startswith("tpumatch.")
-                                   for h in view.host):
+    if not (view.events and view.queries
+            and any(h[0].startswith("tpumatch.") for h in view.host)):
         return None
     busy = _union((lo, hi) for _n, lo, hi in view.events)
     idle, j = 0.0, 0

@@ -8,7 +8,7 @@ device scalar and ``.cpu()`` each end in a ``cudaStreamSynchronize``.  The
 results' copy to the host in ``tpumatch.result`` lies outside the span on
 purpose: it is the closed loop's return, not a wait the pipeline chose.
 None where the trace holds no ``tpumatch.`` span, as a port without spans
-leaves it."""
+leaves it, or no device event, as a run without a card leaves it."""
 
 import bisect
 
@@ -17,8 +17,8 @@ SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
 
 
 def read(view):
-    if not view.queries or not any(h[0].startswith("tpumatch.")
-                                   for h in view.host):
+    if not (view.events and view.queries
+            and any(h[0].startswith("tpumatch.") for h in view.host)):
         return None
     runs = []
     for lo, hi in sorted((lo, hi) for name, lo, hi in view.host

@@ -2,8 +2,9 @@
 program_span``): exact values on hand-made views with overlapping and
 nested spans, idle gaps inside and outside ``tpumatch.extract`` and waits
 inside and outside ``tpumatch.run``; None on a trace without spans, as
-a port without them leaves it; and a traced run on the CPU, where the
-spans reach the readers through ``traces.from_profile``."""
+a port without them leaves it, or without device events, as a run without
+a card leaves it; and a traced run on the CPU, where the spans reach the
+readers through ``traces.from_profile``."""
 
 import dataclasses
 import sys
@@ -61,6 +62,9 @@ def test_extract_idle_is_the_span_union_less_the_busy_union():
     assert read("extract_idle_ms.resident", v) == pytest.approx(0.010)
     assert read("extract_idle_ms.resident", view(
         [("tpumatch.run", 0, 5)])) == 0.0
+    # a device event far from the one extract span: all of it is idle
+    v = view([("tpumatch.extract", 0, 40)], [("k", 500, 510)], queries=4)
+    assert read("extract_idle_ms.resident", v) == pytest.approx(0.010)
 
 
 def test_run_syncs_counts_waits_whose_midpoint_lies_in_a_run():
@@ -83,6 +87,7 @@ def test_none_without_port_spans(name):
     assert read(name, view(parent)) is None
     assert read(name, view([])) is None
     assert read(name, view(queries=0)) is None
+    assert read(name, view(events=[])) is None
 
 
 def test_the_benchmark_holds_the_span_metrics():
@@ -98,24 +103,40 @@ def test_the_benchmark_holds_the_span_metrics():
 
 
 @pytest.mark.parametrize("name", ["rk8-en1g.resident", "bm-dna100m.host"])
-def test_traced_cpu_run_reads_the_port_spans(name):
-    """A traced run on the CPU: the port's spans are on the calling
-    thread, so the span readers of the cell read them; the device readers
-    find no device events there."""
+def test_traced_cpu_run_reads_the_port_spans(name, monkeypatch):
+    """A traced run on the CPU: the port's spans reach the view on the
+    calling thread.  With no card there are no device events, so every
+    reader leaves its metric out of the line; the same view with one
+    device event added is read."""
     cell = manifest.cell(name)
     conf = {**cell.config, "patterns": {**cell.config["patterns"], "pool": 2}}
     cell = dataclasses.replace(cell, config=conf)
+    views = []
+    from_profile = traces.from_profile
+
+    def keep(*args, **kwargs):
+        views.append(from_profile(*args, **kwargs))
+        return views[-1]
+
+    monkeypatch.setattr(traces, "from_profile", keep)
     # config 2's text fills two Rabin-Karp tiles, so its kernel route runs
     n = 4_500_000 if cell.config.get("multi") else 1_500_000
     line = harness.run(cell, 2**31 + 7, 0.3, True, device="cpu", n=n)
     assert line["correct"] is True
-    got = line["metrics"]
     spans = {m["name"] for m in cell.per_layer if m["source"] == "program_span"}
-    assert set(got) == spans
-    assert all(m["value"] >= 0 for m in got.values())
+    assert spans and not spans & set(line["metrics"])
+    (v,) = views
+    assert not v.events
+    names = {h[0] for h in v.host}
+    assert {"tpumatch.run", "tpumatch.extract", "tpumatch.result"} <= names
     if name == "bm-dna100m.host":
-        assert got["pad_ms.host"]["value"] > 0
+        assert {"tpumatch.match", "tpumatch.stage.pad"} <= names
+    card = dataclasses.replace(v, events=[("k", 0.0, 1.0)])
+    got = {n: read(n, card) for n in spans}
+    assert all(x is not None and x >= 0 for x in got.values())
+    if name == "bm-dna100m.host":
+        assert got["pad_ms.host"] > 0
     else:
-        # no device events on the CPU: every ms of extraction is idle
-        assert got["extract_idle_ms.resident"]["value"] > 0
-        assert got["run_syncs.resident"]["value"] == 0
+        # one device event of a microsecond: nearly all of extraction idles
+        assert got["extract_idle_ms.resident"] > 0
+        assert got["run_syncs.resident"] == 0

@@ -29,13 +29,18 @@ source, in parallel), then:
     ``rk_candidate_bsums`` (m=16, m=509, and k=8 targets) and K6
     ``rk_candidate_pmask`` (k=8 m=16 with BASELINE config 2's patterns,
     k=31 m=12, k=2 m=509, k=1 m=2; nonzero exactly where K5 is at k=8) on
-    English and DNA;
+    English and DNA; the decode ``decode_blocks`` against its plain version
+    (the chain it replaced, run on the card) at capacity 0, 1, 4096 and
+    2**20, from K1's flags on every corpus, from K6's masks (k=8) and K5's
+    sums (k=40) on English at 256 MiB and at 64 MiB + 5555 B (padded to
+    4096, so the tail holds valid starts), and from K1's flags with a start
+    planted in that tail;
 (b) drives ``match()`` for every algorithm (the defaults: Boyer-Moore,
     then naive, KMP and Rabin-Karp) on 256 MiB English, DNA and UTF-8
     corpora against the pure-Python oracle; KMP also at m=4, 64 and 256,
     Rabin-Karp at m=509;
-(c) drives a match-dense case that must take the K2 rescan, against a
-    numpy shifted-compare reference;
+(c) drives a match-dense case through one decode (no K2 rescan), against
+    a numpy shifted-compare reference;
 (d) checks that ``drain=True`` returns every offset past ``capacity``, and
     that ``capacity=0`` is count-only for every algorithm (the oracle's
     count, no offsets, overflow when there is a match; ``drain=True``
@@ -45,7 +50,7 @@ source, in parallel), then:
     2**19, default ``multi_gather='pselect'`` on K6), then at 256 MiB
     ``multi_gather='blocks'`` and k=64 (both on K5), a mixed-length
     Rabin-Karp list, a Boyer-Moore list and a drained list, and a dense
-    m=2 list at 64 MiB that takes the K2 rescan;
+    m=2 list at 64 MiB that takes one decode and no K2 rescan;
 (a') holds the kernels of the opt-in routes bit for bit against their plain
     versions and against the ported kernel with the same answer, at 256 MiB
     on English, DNA and UTF-8 and on the 64 MiB dense text: K7/K8
@@ -439,7 +444,7 @@ def stream_phase(workdir: str, big: bytes, c2_pats, c2_cfg, c2_want, dense_text:
     assert sm4.last_stats["drained_slots"] >= 1, "(i) case 4 drained nothing"
     launches = {k: f.launches for k, f in kernels.items()}
     for k in ("screen_cand_bsums", "naive_bsums", "kmp_bsums", "rk_candidate_bsums",
-              "rk_candidate_pmask"):
+              "rk_candidate_pmask", "decode_blocks"):
         assert launches[k] > 0, f"kernel {k} was not launched by the stream"
     print(f"streaming launches (i): {launches}")
 
@@ -629,7 +634,7 @@ def dist_phase(workdir: str, eng: bytes, eng_pat: bytes, big: bytes, c2_pats, c2
         print(f"sharded-path launches (j): {launches} ({time.perf_counter() - t_run:.1f} s "
               f"for the runs)")
         for k in ("screen_cand_bsums", "naive_bsums", "kmp_bsums", "rk_candidate_bsums",
-                  "rk_candidate_pmask"):
+                  "rk_candidate_pmask", "decode_blocks"):
             assert launches[k] > 0, f"kernel {k} was not launched by the sharded paths"
 
         # The wrapper's cost: match_distributed against match on the same
@@ -929,6 +934,26 @@ def main() -> int:
         assert all(torch.equal(g, w) for g, w in zip(got, want)), (
             f"{kernel} disagrees on {what}")
 
+    def hold_decode(what: str, words, flags, Ps, M, cut: int, n: int, m: int,
+                    pmask: bool = False) -> None:
+        """The decode against its plain version (the chain it replaces, run
+        on the card) at capacity 0, 1, 4096 and 2**20: counts equal, and
+        each pattern's first min(count, capacity) offsets."""
+        for cap in (0, 1, 4096, 1 << 20):
+            d = swar.decode_blocks.launches
+            (gc, go), (wc, wo) = (
+                swar.decode_blocks(words, flags, Ps, M, cut, n, m, cap, pmask),
+                swar.decode_blocks_plain(words, flags, Ps, M, cut, n, m, cap, pmask))
+            torch.cuda.synchronize()
+            assert swar.decode_blocks.launches == d + 1, f"decode {what}: not launched"
+            counts = wc.tolist()
+            assert gc.tolist() == counts, f"decode {what} cap {cap}: counts"
+            for p, c in enumerate(counts):
+                w = min(c, cap)
+                assert torch.equal(go[p, :w], wo[p, :w]), f"decode {what} cap {cap}: {p}"
+        lines.append(f"decode_blocks {what}: counts {counts[:8]}{' ...' if len(counts) > 8 else ''}"
+                     f" and offsets equal at capacity 0, 1, 4096, 2**20")
+
     all_corpora = [*corpora.items(), ("dense", (dense_text, dense_pat))]
     cand_words = {}
     for name, (text, pat) in all_corpora:
@@ -949,6 +974,9 @@ def main() -> int:
         hold("naive_bsums", what, bs3, swar.naive_bsums_plain(region, limit, P, M))
         cand_words[name] = int(bs1.sum())
         lines.append(f"  {name}: candidates {int(bs1.sum())}, matches {int(bs3.sum())}")
+        # The decode from K1's flags, the tail [cut, N) in the padding.
+        hold_decode(f"{what} from K1", padded.view(torch.int32), bs1, P[None], M, cut, n,
+                    bm.m)
         # (a') K7 with the 'table_gs' probes, K8 with 'table_dyn''s.
         u = np.frombuffer(pat, np.uint8)
         for tag, table in (("K7", swar.probe_table(u, use_gs=True)),
@@ -979,6 +1007,34 @@ def main() -> int:
                           f"({hit / bs11.numel():.4f}), {int(tot)} (word, alignment) hits")
         lines.append(f"  {name}: screen hits: {'; '.join(shares)}")
         del k2
+
+    # The decode from K6's pattern masks and K5's block sums on English, the
+    # text padded to 4096 only (so the tail holds valid starts), and K1's
+    # flags of a text whose tail holds a planted start.
+    eng_tail = eng[: 64 * MIB + 5555]
+    for tag, pats, pmask in (("k=8 K6 masks", config2_patterns(eng), True),
+                             ("k=40 K5 sums", spread(eng, 40, 12), False)):
+        mm = RabinKarpMultiMatcher(pats, cfg, device=dev)
+        for tname, text in (("256 MiB", eng), ("64 MiB + 5555 B", eng_tail)):
+            padded = to_device(pad_to_multiple(np.frombuffer(text, np.uint8), 4096), dev)
+            Nk, cut = shift_and.kernel_region(padded.numel(), mm.m, cfg.pallas_chunk_bytes)
+            limit = min(len(text) - mm.m, cut - 1)
+            scan = rk_roll.rk_candidate_pmask if pmask else rk_roll.rk_candidate_bsums
+            flags = scan(padded.view(torch.int32)[: Nk // 4], limit, mm.dev_tables["hashes"],
+                         mm.m, int(tables.RK_BASE))
+            hold_decode(f"english {tname} {tag}", padded.view(torch.int32), flags,
+                        mm.dev_tables["swar_ps"], mm.swar_m, cut, len(text), mm.m, pmask)
+    tail_text = bytearray(eng_tail)
+    tail_text[-40:-24] = b"quick brown fox "
+    bm = BoyerMooreMatcher(b"quick brown fox ", cfg, device=dev)
+    padded = to_device(pad_to_multiple(np.frombuffer(bytes(tail_text), np.uint8), 4096), dev)
+    Nk, cut = swar.kernel_region(padded.numel(), bm.m, cfg.pallas_chunk_bytes)
+    bs1 = swar.screen_cand_bsums(padded.view(torch.int32)[: Nk // 4],
+                                 min(len(tail_text) - bm.m, cut - 1), bm.dev_tables["swar_p"],
+                                 bm.swar_m, bm.dev_tables["probes"])
+    hold_decode("english 64 MiB + 5555 B from K1, a start in the tail",
+                padded.view(torch.int32), bs1, bm.dev_tables["swar_p"][None], bm.swar_m, cut,
+                len(tail_text), bm.m)
 
     # K1-K3 walk 16 KiB tiles on a persistent grid: ragged regions of 1,
     # 31, 32, 33 and 97 blocks and of one tile more than SMs x c tiles
@@ -1308,9 +1364,12 @@ def main() -> int:
                "screened_bsums": swar.screened_bsums,
                "kmp_nib": shift_and.kmp_nib,
                "rk_candidate_nib": rk_roll.rk_candidate_nib,
-               "rk_candidate_bmask": rk_roll.rk_candidate_bmask}
-    opt_in = ("screened_nib", "screened_bsums", "kmp_nib", "rk_candidate_nib",
-              "rk_candidate_bmask")
+               "rk_candidate_bmask": rk_roll.rk_candidate_bmask,
+               "decode_blocks": swar.decode_blocks}
+    # K2 runs on the card only under emission='nib': the main path's dense
+    # cases take the decode.
+    opt_in = ("naive_nib", "screened_nib", "screened_bsums", "kmp_nib",
+              "rk_candidate_nib", "rk_candidate_bmask")
     k9_wrappers = (shift_and.kmp_bsums, shift_and.kmp_nib)
 
     def zero_counts():
@@ -1360,16 +1419,17 @@ def main() -> int:
         drive("english", eng, long_pats["english"][m], "kmp")
     drive("english", eng, long_pats["english"][509], "rabin_karp")
 
-    k2 = swar.naive_nib.launches
+    k2, d = swar.naive_nib.launches, swar.decode_blocks.launches
     r = match(dense_text, dense_pat)
     want = np_find_all(np.frombuffer(dense_text, np.uint8), dense_pat)
     cap = cfg.capacity
     assert r.count == len(want) and r.overflow == (len(want) > cap), (
         f"(c) count {r.count} vs {len(want)}")
     assert np.array_equal(r.offsets, want[:cap]), "(c) offsets differ"
-    assert swar.naive_nib.launches > k2, "(c) the dense case did not take K2"
+    assert swar.decode_blocks.launches == d + 1 and swar.naive_nib.launches == k2, (
+        "(c) the dense case did not take the decode alone")
     print(f"(c) dense m=2 on 64 MiB: count {r.count} == numpy reference, first "
-          f"{cap} offsets equal, K2 launches {swar.naive_nib.launches - k2}")
+          f"{cap} offsets equal, decode launches 1, K2 launches 0")
 
     drain_text, drain_pat, drain_cap = eng[: 16 * MIB], b"the ", 16384
     r = match(drain_text, drain_pat, drain=True, capacity=drain_cap)
@@ -1405,9 +1465,9 @@ def main() -> int:
         if want is None:
             want = [np_find_all(t_np, p) for p in pats]
         cap = kw.get("config", cfg).capacity
-        k2, k5, k6, k10 = (swar.naive_nib.launches, rk_roll.rk_candidate_bsums.launches,
-                           rk_roll.rk_candidate_pmask.launches,
-                           rk_roll.rk_candidate_bmask.launches)
+        k2, k5, k6, k10, d = (swar.naive_nib.launches, rk_roll.rk_candidate_bsums.launches,
+                              rk_roll.rk_candidate_pmask.launches,
+                              rk_roll.rk_candidate_bmask.launches, swar.decode_blocks.launches)
         t0 = time.perf_counter()
         rs = match(text, pats, **kw)
         dt = time.perf_counter() - t0
@@ -1427,7 +1487,8 @@ def main() -> int:
               f"{rk_roll.rk_candidate_bsums.launches - k5}, K6 "
               f"{rk_roll.rk_candidate_pmask.launches - k6}, K10c "
               f"{rk_roll.rk_candidate_bmask.launches - k10}, K2 "
-              f"{swar.naive_nib.launches - k2} ({dt:.2f} s from host bytes)")
+              f"{swar.naive_nib.launches - k2}, decode {swar.decode_blocks.launches - d} "
+              f"({dt:.2f} s from host bytes)")
         return rs
 
     # BASELINE config 2 at full size (bench/matrix.py:288-390).
@@ -1461,11 +1522,11 @@ def main() -> int:
                [b"quick brown fox ", b"the ", eng[5000:5509]])
     drive_many("drained list, 256 MiB English", eng, [b"the ", b"quick brown fox "],
                algo="rabin_karp", drain=True)
-    k2 = swar.naive_nib.launches
+    k2, d = swar.naive_nib.launches, swar.decode_blocks.launches
     rs = drive_many("dense m=2, 64 MiB English", dense_text, [b"e ", b" t", b"th"],
                     algo="rabin_karp", config=cfg.replace(capacity=4096))
-    assert all(r.overflow for r in rs) and swar.naive_nib.launches >= k2 + 3, (
-        "(f) the dense list did not take the K2 rescan")
+    assert all(r.overflow for r in rs) and swar.naive_nib.launches == k2 and (
+        swar.decode_blocks.launches == d + 1), "(f) the dense list did not take one decode"
     assert rk_roll.rk_candidate_pmask.launches > k6_f and \
         rk_roll.rk_candidate_bsums.launches > k5_f, "(f) K5/K6 not launched"
 

@@ -19,7 +19,9 @@
 // verify K7/K8 (one template: the screen's probe pair is an argument), walk
 // contiguous 16 KiB tiles.  K11d, the gather-verify of listed 4 KiB groups,
 // runs K2's verify (verify_block) on gathered tiles: tile i is the group
-// g8[i] and the halo after it.
+// g8[i] and the halo after it.  The decode (decode_*_kernel, below the
+// scans) is no scan: it runs K2's verify on the blocks a scan flagged, in
+// place, and writes every pattern's exact count and first offsets.
 //
 // Block sums come out in byte order: bs[b] covers bytes 512b..512b+511.
 // The JAX reference's tile-major reorder (swar.py _run) has no counterpart.
@@ -329,13 +331,13 @@ __device__ __forceinline__ Screen stage_screen(const uint32_t* __restrict__ P,
 
 // One warp's exact verify of a 512-byte block whose word i is smem[x -
 // lane + i] (the pattern's nw - 1 words after it too): lane L takes words
-// L + 32q.  Starts at bytes 0..rel of the block pass the clamp (rel =
-// n_lim - the block's first byte).  Under kEmitNib stores word i's nibble
-// at nib_row[i]; returns the block's count in every lane.
-template <bool kEmitNib>
-__device__ __forceinline__ int verify_block(const uint32_t* smem, int x, const Screen& sc,
-                                            const uint32_t* pm, int nw, long long rel,
-                                            int lane, int* __restrict__ nib_row) {
+// L + 32q, and bits[q] gets word L + 32q's nibble.  pp holds the pattern's
+// words P[4][nw], mm the masks M[4][nw].  Starts at bytes 0..rel of the
+// block pass the clamp (rel = n_lim - the block's first byte).  Returns the
+// lane's count.
+__device__ __forceinline__ int verify_bits(const uint32_t* smem, int x, const Screen& sc,
+                                           const uint32_t* pp, const uint32_t* mm, int nw,
+                                           long long rel, int lane, int bits[4]) {
   // The screen, branch-free: does any alignment of the word pass it?
   bool hit[4];
 #pragma unroll
@@ -348,7 +350,8 @@ __device__ __forceinline__ int verify_block(const uint32_t* smem, int x, const S
       hit[q] |= d == 0u;
     }
   }
-  int bits[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) bits[q] = 0;
   int sum = 0;
   // The chains, each to its first mismatch, of the words with a hit; the
   // warp takes this path only when one of its lanes has one.
@@ -361,7 +364,7 @@ __device__ __forceinline__ int verify_block(const uint32_t* smem, int x, const S
       for (int a = 0; a < 4; ++a) {
         bool ok = true;
         for (int k = 0; ok && k < nw; ++k)
-          ok = (smem[x + 32 * q + k] & pm[4 * nw + a * nw + k]) == pm[a * nw + k];
+          ok = (smem[x + 32 * q + k] & mm[a * nw + k]) == pp[a * nw + k];
         bits[q] |= (int)ok << a;
       }
       int keep = relc - 4 * (lane + 32 * q) + 1;
@@ -370,6 +373,17 @@ __device__ __forceinline__ int verify_block(const uint32_t* smem, int x, const S
       sum += __popc(bits[q]);
     }
   }
+  return sum;
+}
+
+// verify_bits for the whole warp: under kEmitNib stores word i's nibble at
+// nib_row[i]; returns the block's count in every lane.
+template <bool kEmitNib>
+__device__ __forceinline__ int verify_block(const uint32_t* smem, int x, const Screen& sc,
+                                            const uint32_t* pp, const uint32_t* mm, int nw,
+                                            long long rel, int lane, int* __restrict__ nib_row) {
+  int bits[4];
+  const int sum = verify_bits(smem, x, sc, pp, mm, nw, rel, lane, bits);
   if (kEmitNib)
 #pragma unroll
     for (int q = 0; q < 4; ++q) nib_row[lane + 32 * q] = bits[q];
@@ -393,7 +407,8 @@ naive_kernel(const uint32_t* __restrict__ words, long long n_words,
       const int lb = warp + i * kScanWarps;
       const long long b = t * kTileBlocks + lb;
       if (b >= n_blocks) break;  // the ragged last tile
-      const int sum = verify_block<kEmitNib>(smem, base + lb * kBlockWords + lane, sc, pm, nw,
+      const int sum = verify_block<kEmitNib>(smem, base + lb * kBlockWords + lane, sc, pm,
+                                             pm + 4 * nw, nw,
                                              n_lim - (long long)kBlockBytes * b, lane,
                                              nib + b * kBlockWords);
       if (lane == 0) bs[b] = sum;
@@ -449,8 +464,9 @@ naive_groups_kernel(const uint32_t* __restrict__ words, long long n_words,
         int count = 0;
         if (first >= 0) {  // the warp's block of a listed group
           const long long b = first / kBlockWords + warp;
-          count = verify_block<true>(smem, base + warp * kBlockWords + lane, sc, pm, nw,
-                                     n_lim - (long long)kBlockBytes * b, lane, nib_row);
+          count = verify_block<true>(smem, base + warp * kBlockWords + lane, sc, pm,
+                                     pm + 4 * nw, nw, n_lim - (long long)kBlockBytes * b,
+                                     lane, nib_row);
         } else {
 #pragma unroll
           for (int q = 0; q < 4; ++q) nib_row[lane + 32 * q] = 0;
@@ -461,6 +477,296 @@ naive_groups_kernel(const uint32_t* __restrict__ words, long long n_words,
         }
       });
   if (lane == 0 && sum != 0) atomicAdd(total, sum);
+}
+
+// ---------------------------------------------------------------------------
+// The decode: block flags to every pattern's exact count and first offsets
+// ---------------------------------------------------------------------------
+//
+// Replaces no TPU kernel.  The reference (and the port until this kernel)
+// extracted on the host's schedule: per pattern, the ids of the flagged
+// 4 KiB chunks (a nonzero), a gather and word compares of those chunks, the
+// positions (another nonzero), a full K2 rescan when the chunks outnumbered
+// the gather's width, and a plain start mask over the tail [cut, N) merged
+// after the region: a few dozen launches and several host reads a pattern.
+// Here the whole range of valid starts [0, limit] (limit = n - m) is decoded
+// in three launches and read once.
+//
+// Block b (bytes 512b..512b+511) is verified for pattern p when it holds a
+// valid start (512b <= limit) and either it holds a start at or past cut,
+// which no scan covered (the tail: every pattern), or its scan flag names p:
+// a nonzero block sum names every pattern (K1, K3-K5, K7/K8), bit p of a
+// pattern mask names pattern p (K6).  A flag is a superset of the blocks
+// that hold a start < cut, so the verify of every flagged block, with the
+// full limit, is exact.  A warp owns a segment of 32 blocks, one flag per
+// lane; each flagged block of the segment is copied once to the warp's
+// shared memory with the nw - 1 words after it (0 past the text's end), two
+// blocks' loads in flight at a time, and verified there for every pattern
+// it names by verify_bits, K2's verify.
+//
+// 1. decode_count_kernel: the exact count of every (pattern, segment),
+//    seg_counts[p][s], zero where nothing is flagged.
+// 2. decode_scan_kernel: a CTA per pattern, the exclusive prefix of its
+//    segment counts (seg_base[p][s]) and the total (totals[p]).
+// 3. decode_emit_kernel: the segments whose prefix lies below width verify
+//    their blocks again and write each start at its rank, ascending,
+//    offsets[p][rank] for rank < width; a warp scan orders a block's starts.
+//
+// Bound on the H100: the flags read once (one int a block) and the flagged
+// blocks read once (512 bytes and the halo), a second time for those that
+// hold one of the first width starts; the rest is launch latency.  On a
+// sparse screen the flags are the work (7.6 MB for 1 GB of text, about
+// 2.3 us at 3.35 TB/s); where every block is flagged it is K2's read of
+// the text, once for all the patterns a block names.
+
+constexpr int kSegBlocks = 32;  // blocks per warp segment: a flag per lane
+constexpr int kDecodeWarps = 8;
+constexpr int kDecodeThreads = 32 * kDecodeWarps;
+constexpr int kStageWords = kBlockWords + kMaxPatternWords;  // a block and its halo
+constexpr int kStageBlocks = 2;  // flagged blocks a warp copies at once
+constexpr int kScanCta = 1024;  // decode_scan_kernel's threads
+constexpr int kScanRun = 8;     // its loads in flight a thread
+
+struct Decode {
+  const uint32_t* words;  // the padded text, n_words words
+  long long n_words;
+  const int* flags;  // the scan's n_flags block flags
+  long long n_flags;
+  const uint32_t* P;  // P[k][4][nw]
+  const uint32_t* M;  // M[4][nw]
+  int nw, m, k, pmask;
+  long long cut, limit;  // the tail's first byte; the largest valid start
+  long long n_segs;
+  int* seg_counts;       // [k][n_segs]
+  long long* seg_base;   // [k][n_segs]
+  long long* totals;     // [k]
+  long long* offsets;    // [k][width]
+  long long width;
+};
+
+// Bit j of the result: block b is verified for pattern 32c + j (every bit
+// for the tail and for a nonzero block sum, the flag's bits for a mask).
+__device__ __forceinline__ uint32_t block_patterns(const Decode& d, long long b) {
+  if ((long long)kBlockBytes * b > d.limit) return 0u;  // no valid start
+  if ((long long)kBlockBytes * b + kBlockBytes - 1 >= d.cut) return ~0u;  // the tail
+  const int f = b < d.n_flags ? __ldg(d.flags + b) : 0;
+  return d.pmask ? (uint32_t)f : (f != 0 ? ~0u : 0u);
+}
+
+// verify_bits' screen for m-byte patterns: per alignment a its first and
+// last whole words (word 0 twice if none is whole), as stage_screen picks
+// them from M; the mask words now, the pattern's words by screen_of.
+__device__ __forceinline__ Screen decode_screen(const Decode& d) {
+  Screen sc;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int first = a > 0 ? 1 : 0, last = (a + d.m) / 4 - 1;
+    sc.k[a][0] = first <= last ? first : 0;
+    sc.k[a][1] = first <= last ? last : 0;
+#pragma unroll
+    for (int s = 0; s < 2; ++s) sc.m[a][s] = __ldg(d.M + a * d.nw + sc.k[a][s]);
+  }
+  return sc;
+}
+
+__device__ __forceinline__ const uint32_t* screen_of(Screen& sc, const Decode& d, int p) {
+  const uint32_t* pp = d.P + (long long)p * 4 * d.nw;
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int s = 0; s < 2; ++s) sc.p[a][s] = __ldg(pp + a * d.nw + sc.k[a][s]);
+  return pp;
+}
+
+// The warp's next kStageBlocks blocks of left (bits: blocks of segment s),
+// lowest first, taken from left: block b[j] and the patterns of sel it
+// names, pats[j] (0 past the last block).  Each block with a pattern is
+// copied with the nw - 1 words after it (0 past the text's end) to buf +
+// j * kStageWords, every load in flight before the first store.
+__device__ __forceinline__ void stage_next(const Decode& d, long long s, uint32_t mine,
+                                           uint32_t sel, uint32_t& left,
+                                           long long b[kStageBlocks],
+                                           uint32_t pats[kStageBlocks], uint32_t* buf,
+                                           int lane) {
+  const int n = kBlockWords + d.nw - 1;
+  uint32_t v[kStageBlocks][kStageWords / 32];
+#pragma unroll
+  for (int j = 0; j < kStageBlocks; ++j) {
+    const int i = __ffs(left) - 1;  // -1: none left
+    left &= left - 1;
+    const uint32_t f = __shfl_sync(0xffffffffu, mine, i < 0 ? 0 : i);
+    pats[j] = i < 0 ? 0u : f & sel;
+    b[j] = s * kSegBlocks + (i < 0 ? 0 : i);
+#pragma unroll
+    for (int q = 0; q < kStageWords / 32; ++q) {
+      const int w = lane + 32 * q;
+      const long long at = b[j] * kBlockWords + w;
+      v[j][q] = pats[j] && w < n && at < d.n_words ? __ldg(d.words + at) : 0u;
+    }
+  }
+  __syncwarp();  // the warp's reads of the blocks before are done
+#pragma unroll
+  for (int j = 0; j < kStageBlocks; ++j)
+#pragma unroll
+    for (int q = 0; q < kStageWords / 32; ++q)
+      if (pats[j] && lane + 32 * q < n) buf[j * kStageWords + lane + 32 * q] = v[j][q];
+  __syncwarp();
+}
+
+__global__ void __launch_bounds__(kDecodeThreads)
+decode_count_kernel(Decode d) {
+  __shared__ uint32_t stage[kDecodeWarps][kStageBlocks * kStageWords];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long s = (long long)blockIdx.x * kDecodeWarps + warp;
+  if (s >= d.n_segs) return;  // whole warps; no barrier follows
+  Screen sc = decode_screen(d);
+  const uint32_t mine = block_patterns(d, s * kSegBlocks + lane);
+  for (int c = 0; c < d.k; c += 32) {
+    const int kc = d.k - c < 32 ? d.k - c : 32;
+    const uint32_t chunk = kc == 32 ? ~0u : (1u << kc) - 1;  // patterns c..c + kc - 1
+    int count = 0;  // lane j: pattern c + j in this segment
+    uint32_t left = __ballot_sync(0xffffffffu, (mine & chunk) != 0u);
+    while (left) {
+      long long b[kStageBlocks];
+      uint32_t pats[kStageBlocks];
+      stage_next(d, s, mine, chunk, left, b, pats, stage[warp], lane);
+#pragma unroll
+      for (int t = 0; t < kStageBlocks; ++t)
+        for (uint32_t pl = pats[t]; pl; pl &= pl - 1) {
+          const int j = __ffs(pl) - 1;
+          const uint32_t* pp = screen_of(sc, d, c + j);
+          int bits[4];
+          const int n = __reduce_add_sync(
+              0xffffffffu,
+              verify_bits(stage[warp] + t * kStageWords, lane, sc, pp, d.M, d.nw,
+                          d.limit - (long long)kBlockBytes * b[t], lane, bits));
+          if (lane == j) count += n;
+        }
+    }
+    if (lane < kc) d.seg_counts[(long long)(c + lane) * d.n_segs + s] = count;
+  }
+}
+
+__global__ void __launch_bounds__(kScanCta)
+decode_scan_kernel(Decode d) {
+  __shared__ long long warp_sums[kScanCta / 32];
+  const int p = blockIdx.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int* cnt = d.seg_counts + (long long)p * d.n_segs;
+  long long* base = d.seg_base + (long long)p * d.n_segs;
+  // Thread t takes the segments [t * per, (t + 1) * per), kScanRun loads
+  // in flight at a time.
+  const long long per = (d.n_segs + kScanCta - 1) / kScanCta;
+  const long long lo = threadIdx.x * per;
+  const long long hi = lo + per < d.n_segs ? lo + per : d.n_segs;
+  long long sum = 0;
+  for (long long s = lo; s < hi; s += kScanRun) {
+    int v[kScanRun];
+#pragma unroll
+    for (int j = 0; j < kScanRun; ++j) v[j] = s + j < hi ? cnt[s + j] : 0;
+#pragma unroll
+    for (int j = 0; j < kScanRun; ++j) sum += v[j];
+  }
+  long long incl = sum;  // inclusive over the warp, then over the CTA
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const long long v = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += v;
+  }
+  if (lane == 31) warp_sums[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const long long v = warp_sums[lane];
+    long long w = v;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const long long u = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w += u;
+    }
+    warp_sums[lane] = w - v;
+  }
+  __syncthreads();
+  long long run = warp_sums[warp] + incl - sum;
+  for (long long s = lo; s < hi; s += kScanRun) {
+    int v[kScanRun];
+#pragma unroll
+    for (int j = 0; j < kScanRun; ++j) v[j] = s + j < hi ? cnt[s + j] : 0;
+#pragma unroll
+    for (int j = 0; j < kScanRun; ++j) {
+      if (s + j < hi) base[s + j] = run;
+      run += v[j];
+    }
+  }
+  if (threadIdx.x == kScanCta - 1) d.totals[p] = run;
+}
+
+__global__ void __launch_bounds__(kDecodeThreads)
+decode_emit_kernel(Decode d) {
+  __shared__ uint32_t stage[kDecodeWarps][kStageBlocks * kStageWords];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long s = (long long)blockIdx.x * kDecodeWarps + warp;
+  if (s >= d.n_segs) return;
+  Screen sc = decode_screen(d);
+  const uint32_t mine = block_patterns(d, s * kSegBlocks + lane);
+  if (!__ballot_sync(0xffffffffu, mine != 0u)) return;
+  for (int c = 0; c < d.k; c += 32) {
+    // Lane j: pattern c + j's next rank, and whether the segment holds one
+    // of its starts below width.
+    long long at = 0;
+    bool need = false;
+    if (c + lane < d.k) {
+      const long long i = (long long)(c + lane) * d.n_segs + s;
+      at = d.seg_base[i];
+      need = d.seg_counts[i] > 0 && at < d.width;
+    }
+    uint32_t needs = __ballot_sync(0xffffffffu, need);
+    uint32_t left = __ballot_sync(0xffffffffu, (mine & needs) != 0u);
+    while (left && needs) {
+      long long bs[kStageBlocks];
+      uint32_t pats[kStageBlocks];
+      stage_next(d, s, mine, needs, left, bs, pats, stage[warp], lane);
+#pragma unroll
+      for (int t = 0; t < kStageBlocks; ++t)
+        for (uint32_t pl = pats[t] & needs; pl; pl &= pl - 1) {
+          const int j = __ffs(pl) - 1, p = c + j;
+          const long long b = bs[t];
+          const uint32_t* pp = screen_of(sc, d, p);
+          int bits[4];
+          const int n = verify_bits(stage[warp] + t * kStageWords, lane, sc, pp, d.M, d.nw,
+                                    d.limit - (long long)kBlockBytes * b, lane, bits);
+          if (!__any_sync(0xffffffffu, n)) continue;  // no start of p here
+          // Lane L's starts in word L + 32q go after the block's starts in
+          // words < 32q and in words 32q..L + 32q - 1: one warp scan of the
+          // four per-word counts, a byte each (a byte holds 32 lanes' 4).
+          int packed = 0;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) packed |= __popc(bits[q]) << (8 * q);
+          int incl = packed;
+#pragma unroll
+          for (int o = 1; o < 32; o <<= 1) {
+            const int v = __shfl_up_sync(0xffffffffu, incl, o);
+            if (lane >= o) incl += v;
+          }
+          const int total = __shfl_sync(0xffffffffu, incl, 31);
+          const long long r = __shfl_sync(0xffffffffu, at, j);
+          long long* out = d.offsets + (long long)p * d.width;
+          long long before = r;  // the starts in the words before 32q
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            long long slot = before + ((incl - packed) >> (8 * q) & 0xff);
+            const long long pos = (long long)kBlockBytes * b + 4 * (lane + 32 * q);
+#pragma unroll
+            for (int a = 0; a < 4; ++a)
+              if ((bits[q] >> a) & 1) {
+                if (slot < d.width) out[slot] = pos + a;
+                ++slot;
+              }
+            before += total >> (8 * q) & 0xff;
+          }
+          if (lane == j) at = before;
+          if (before >= d.width) needs &= ~(1u << j);
+        }
+    }
+  }
 }
 
 int check_args(long long n_words, int nw) {
@@ -618,6 +924,45 @@ int tpm_gather_verify(const void* words, long long n_words, long long n_lim,
       (const uint32_t*)words, n_words, n_lim, (const int*)g8, n_ids,
       (const uint32_t*)P, (const uint32_t*)M, nw, kOwnScreen, (int*)nib, (int*)bsr,
       (int*)total);
+  return (int)cudaGetLastError();
+}
+
+// The decode (decode_count_kernel, decode_scan_kernel, decode_emit_kernel):
+// words the n_words words of the padded text, flags the n_flags int32 block
+// flags of the scan (pmask: bit p names pattern p, k <= 32; otherwise a
+// nonzero names every pattern), P the k patterns' int32 [4][nw] words and M
+// their masks, nw = (m + 6) / 4 <= 128; cut the tail's first byte and
+// limit = n - m the largest valid start.  n_segs = ceil(min(limit / 512 + 1,
+// n_words / 128) / 32) (0 when limit < 0).  seg_counts must hold k * n_segs
+// ints, seg_base k * n_segs int64, totals k int64 and offsets k * width
+// int64; totals[p] becomes pattern p's exact count and offsets[p][0..)
+// its first min(count, width) starts, ascending.
+int tpm_decode_blocks(const void* words, long long n_words, const void* flags,
+                      long long n_flags, const void* P, const void* M, int nw, int m,
+                      int k, int pmask, long long cut, long long limit, long long n_segs,
+                      void* seg_counts, void* seg_base, void* totals, void* offsets,
+                      long long width, void* stream) {
+  const long long blocks = limit < 0 ? 0 : (limit / kBlockBytes + 1 < n_words / kBlockWords
+                                                ? limit / kBlockBytes + 1
+                                                : n_words / kBlockWords);
+  if (n_words < 0 || n_words % kBlockWords != 0 || n_flags < 0 || m < 1 || nw != (m + 6) / 4 ||
+      nw > kMaxPatternWords || k < 1 || (pmask && k > 32) || width < 0 ||
+      n_segs != (blocks + kSegBlocks - 1) / kSegBlocks ||
+      n_segs > 0x7fffffffLL * kDecodeWarps)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const Decode d = {(const uint32_t*)words, n_words, (const int*)flags, n_flags,
+                    (const uint32_t*)P, (const uint32_t*)M, nw, m, k, pmask, cut, limit,
+                    n_segs, (int*)seg_counts, (long long*)seg_base, (long long*)totals,
+                    (long long*)offsets, width};
+  const unsigned grid = (unsigned)((n_segs + kDecodeWarps - 1) / kDecodeWarps);
+  if (n_segs > 0) {
+    decode_count_kernel<<<grid, kDecodeThreads, 0, s>>>(d);
+    if (cudaError_t err = cudaGetLastError()) return (int)err;
+  }
+  decode_scan_kernel<<<k, kScanCta, 0, s>>>(d);
+  if (cudaError_t err = cudaGetLastError()) return (int)err;
+  if (n_segs > 0 && width > 0) decode_emit_kernel<<<grid, kDecodeThreads, 0, s>>>(d);
   return (int)cudaGetLastError();
 }
 

@@ -26,11 +26,15 @@ in this module and a launch counter (``<wrapper>.launches``):
   (word, alignment) candidates per block and in total, the screen of the
   ``exp/`` prototypes;
 - ``gather_verify`` (K11d): ``naive_nib``'s exact verify of listed 4 KiB
-  groups only, their nibble rows, per-row counts and total.
+  groups only, their nibble rows, per-row counts and total;
+- ``decode_blocks``: no scan, the extraction after one: from a scan's block
+  flags to every pattern's exact count and first ``capacity`` offsets over
+  all valid starts, the tail past the scan's cut included, in three
+  launches.
 
 A wrapper runs the plain version for a CPU tensor and launches the kernel
-for a CUDA tensor; there is no other route.  All emit block sums in byte
-order and read words past the end of their input as 0.
+for a CUDA tensor; there is no other route.  All scans emit block sums in
+byte order and read words past the end of their input as 0.
 """
 
 from __future__ import annotations
@@ -40,12 +44,14 @@ import torch
 
 from ..utils import cuda_build
 from ..utils.cuda_build import I64, INT, PTR
+from ..utils.profiling import span
 
 HALO_WORDS = 128          # the reference's 512-byte chunk halo
 MAX_PATTERN = HALO_WORDS * 4 - 3  # 509: kernel-path bound shared with it
 BLOCK_WORDS = 128         # words per 512-byte block sum
 BLOCK_BYTES = 4 * BLOCK_WORDS
 GROUP_WORDS = 8 * BLOCK_WORDS  # words per 4 KiB group of gather_verify
+SEGMENT_BLOCKS = 32  # blocks per warp of decode_blocks: one flag per lane
 
 
 def swar_supported(m: int) -> bool:
@@ -189,6 +195,8 @@ _SIGNATURES = {
     "tpm_screened_bsums": _PROBED + [PTR],
     "tpm_screen_cand_nibsums": _PROBED + [PTR, PTR],
     "tpm_gather_verify": [PTR, I64, I64, PTR, I64, PTR, PTR, INT, PTR, PTR, PTR],
+    "tpm_decode_blocks": [PTR, I64, PTR, I64, PTR, PTR, INT, INT, INT, INT, I64,
+                          I64, I64, PTR, PTR, PTR, PTR, I64],
 }
 
 
@@ -544,6 +552,113 @@ def gather_verify(words: torch.Tensor, g8: torch.Tensor, n_lim: int,
 
 
 gather_verify.launches = 0
+
+
+def decode_width(n: int, m: int, capacity: int) -> int:
+    """Offset slots a pattern gets from ``decode_blocks``: ``capacity``, or
+    fewer where the text has fewer starts (n - m + 1)."""
+    return max(0, min(capacity, n - m + 1))
+
+
+def decode_segments(n_words: int, limit: int) -> int:
+    """Warp segments of ``decode_blocks``: the 512-byte blocks that hold a
+    start <= ``limit``, in runs of ``SEGMENT_BLOCKS``."""
+    if limit < 0:
+        return 0
+    blocks = min(limit // BLOCK_BYTES + 1, n_words // BLOCK_WORDS)
+    return -(-blocks // SEGMENT_BLOCKS)
+
+
+def _check_decode(words, flags, Ps, M, m: int, pmask: bool) -> None:
+    if Ps.dim() != 3 or Ps.shape[0] < 1 or not Ps.is_contiguous():
+        raise ValueError(f"Ps must be a contiguous [k, 4, nw], got {tuple(Ps.shape)}")
+    _check(words, Ps[0], M)
+    if words.numel() % GROUP_WORDS:
+        raise ValueError(
+            f"words must hold a whole number of 4 KiB rows, got {words.numel()} words")
+    if Ps.shape[2] != (m + 6) // 4 or not 1 <= m <= MAX_PATTERN:
+        raise ValueError(f"Ps has {Ps.shape[2]} words, m = {m} needs {(m + 6) // 4}")
+    if pmask and Ps.shape[0] > 32:
+        raise ValueError(f"a pattern mask names at most 32 patterns, got {Ps.shape[0]}")
+    if (flags.dtype != torch.int32 or flags.dim() != 1 or not flags.is_contiguous()
+            or flags.device != words.device):
+        raise ValueError(
+            f"flags must be contiguous 1-D int32 on {words.device}, got {flags.dtype} "
+            f"{tuple(flags.shape)} on {flags.device}")
+    if flags.numel() * BLOCK_WORDS > words.numel():
+        raise ValueError(f"{flags.numel()} block flags for {words.numel()} words")
+
+
+def decode_blocks_plain(words, flags, Ps, M, cut: int, n: int, m: int,
+                        capacity: int, pmask: bool = False):
+    """Plain PyTorch version of ``decode_blocks`` (same contract): the chain
+    the kernel replaces.  Per pattern ``ops/reconstruct.extract_region``
+    gathers and verifies the 4 KiB chunks of its flagged blocks (the K2
+    rescan past the gather's width) up to min(n - m, cut - 1), and the tail
+    [cut, N) takes the naive start mask (``ops/naive.naive_start_mask``),
+    merged after it (``ops/emit.merge_tail``).  Slots past a pattern's
+    count hold -1."""
+    from ..ops import emit, naive, reconstruct  # they import this module
+
+    k, width = Ps.shape[0], decode_width(n, m, capacity)
+    regions = reconstruct.extract_region_multi(
+        flags, reconstruct.full_words2d(words), Ps, M, m, min(n - m, cut - 1),
+        width, pmask)
+    text = words.view(torch.uint8)
+    counts = torch.zeros(k, dtype=torch.int64, device=words.device)
+    offsets = torch.full((k, width), -1, dtype=torch.int64, device=words.device)
+    for p, region in enumerate(regions):
+        with span("tpumatch.tail"):
+            tail = naive.naive_start_mask(text[cut:], Ps[p, 0].view(torch.uint8)[:m])
+        c, o, _ = emit.merge_tail(*region, cut, n, m, width, tail)
+        counts[p] = c
+        offsets[p, : o.numel()] = o
+    return counts, offsets
+
+
+def decode_blocks(words: torch.Tensor, flags: torch.Tensor, Ps: torch.Tensor,
+                  M: torch.Tensor, cut: int, n: int, m: int, capacity: int,
+                  pmask: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """Every valid start [0, n - m] of k m-byte patterns, from a scan's
+    block flags over the kernel region.
+
+    ``words``: int32[Nw], the whole padded text (Nw a multiple of 1024, N =
+    4 Nw bytes); ``flags``: int32[NB], the scan's flag of each 512-byte
+    block of the region [0, 512 NB): with ``pmask`` bit p names pattern p
+    (K6, k <= 32), otherwise a nonzero names every pattern (block sums);
+    flagged blocks must hold every start < ``cut`` that matches.  ``Ps``:
+    int32[k, 4, nw] the patterns' SWAR words (``pattern_words``), ``M``
+    their masks (``mask_words(m)``).  The blocks from ``cut`` on (the tail
+    the scan did not cover) are verified for every pattern, so no plain
+    mask follows.  Returns (counts int64[k], offsets int64[k, width]),
+    width = ``decode_width(n, m, capacity)``: counts[p] is pattern p's
+    exact count of starts <= n - m and offsets[p, :min(counts[p], width)]
+    its first starts, ascending; the slots after them are not defined.
+    Both stay on the device: the caller reads the counts once.
+
+    Replaces no TPU kernel: it replaces the host-driven chain of
+    ``decode_blocks_plain`` (csrc/swar.cu notes what bounds it).  Three
+    launches, no host read, under the ``tpumatch.extract`` span."""
+    _check_decode(words, flags, Ps, M, m, pmask)
+    if words.device.type == "cpu":
+        return decode_blocks_plain(words, flags, Ps, M, cut, n, m, capacity, pmask)
+    k, nw, dev = Ps.shape[0], Ps.shape[2], words.device
+    width, limit = decode_width(n, m, capacity), n - m
+    n_segs = decode_segments(words.numel(), limit)
+    counts = torch.empty(k, dtype=torch.int64, device=dev)
+    offsets = torch.empty((k, width), dtype=torch.int64, device=dev)
+    seg_counts = torch.empty(k * n_segs, dtype=torch.int32, device=dev)
+    seg_base = torch.empty(k * n_segs, dtype=torch.int64, device=dev)
+    with span("tpumatch.extract"):
+        _launch("tpm_decode_blocks", dev, words.data_ptr(), words.numel(),
+                flags.data_ptr(), flags.numel(), Ps.data_ptr(), M.data_ptr(), nw,
+                m, k, int(pmask), int(cut), limit, n_segs, seg_counts.data_ptr(),
+                seg_base.data_ptr(), counts.data_ptr(), offsets.data_ptr(), width)
+    decode_blocks.launches += 1
+    return counts, offsets
+
+
+decode_blocks.launches = 0
 
 
 def pack_nibbles(mask: torch.Tensor) -> torch.Tensor:

@@ -7,22 +7,25 @@ Each runs the same pipeline on a padded text of N bytes.  With
 1. a scan kernel over the kernel region [0, Nk) emits per-512-byte-block
    counts: exact matches (naive, K3 ``swar.naive_bsums``; Boyer-Moore with
    ``bm_screen='fused'`` or ``bm_probes='table_dyn'``, K7/K8
-   ``swar.screened_bsums``), or candidates that ``extract_region``
-   verifies and recounts (Boyer-Moore's probe screen K1
+   ``swar.screened_bsums``), or candidates that the extraction verifies
+   and recounts (Boyer-Moore's probe screen K1
    ``swar.screen_cand_bsums``, Rabin-Karp's rolling hash K5
    ``rk_roll.rk_candidate_bsums``, KMP's Shift-AND automaton K4
    ``shift_and.kmp_bsums``, exact for m <= 32 and a prefix screen above);
-2. ``reconstruct.extract_region`` verifies the candidate chunks exactly
-   (escalating to the K2 rescan when they are too many);
-3. the tail [cut, N) takes the algorithm's plain mask, merged after the
-   region.
+2. ``reconstruct.extract_blocks`` decodes every valid start from the
+   block flags: on the card one CUDA decode (``swar.decode_blocks``)
+   verifies the flagged blocks and the tail [cut, N) the scan did not
+   cover, and the counts are read once; on the CPU its plain version, the
+   chunk gather of ``reconstruct.extract_region`` (the K2 rescan when the
+   chunks are too many) and a naive tail mask merged after the region.
 
 With ``emission='nib'`` the scan kernel also writes the nibble plane of
 its starts and step 2 decodes it (``emit.nibble_to_matches``): naive K2
 ``swar.naive_nib``, Boyer-Moore K7/K8 ``swar.screened_nib``, KMP K10a
 ``shift_and.kmp_nib`` (the whole pattern, m <= 256).  Rabin-Karp's plane
 (K10b ``rk_roll.rk_candidate_nib``) holds hash candidates, whose windows
-``ops/rabin_karp.verify_region`` verifies.
+``ops/rabin_karp.verify_region`` verifies.  The tail [cut, N) then takes the
+algorithm's plain mask, merged after the region.
 
 Texts shorter than one kernel tile, and patterns a kernel does not take,
 take the algorithm's plain mask (``_mask``) over the whole text.
@@ -77,8 +80,8 @@ def _swar_tables(pat: np.ndarray) -> dict:
 
 
 class _RegionMatcher(Matcher):
-    """Shared by the four matchers: device tables, the byte masks that
-    ``extract_region`` verifies with, and the region + tail merge."""
+    """Shared by the four matchers: device tables, the byte masks that the
+    extraction verifies with, and the region + tail merge."""
 
     def __init__(self, pattern: bytes, config: MatchConfig = DEFAULT_CONFIG,
                  device="cuda"):
@@ -91,28 +94,31 @@ class _RegionMatcher(Matcher):
     def _probe_layout(self):
         return None
 
-    def _nib_and_tail(self, nib, bs, n: int, cut: int, tail_mask):
+    def _merge_tail(self, c1, o1, v1, text, n: int, cut: int):
+        """(count, offsets, overflow) of a region's result merged with the
+        algorithm's plain start mask over the tail [cut, N)."""
+        with span("tpumatch.tail"):
+            tail = self._mask(text[cut:])
+        return emit.merge_tail(c1, o1, v1, cut, n, self.m,
+                               self.config.capacity, tail)
+
+    def _nib_and_tail(self, nib, bs, text, n: int, cut: int):
         """(count, offsets, overflow) from the region's exact nibble plane
         ``nib`` and block sums ``bs`` (validity min(n-m, cut-1) applied in
-        the kernel) and the tail's start mask over [cut, N)."""
-        cfg = self.config
-        c1, o1, v1 = emit.nibble_to_matches(nib, bs, cfg.capacity)
-        return emit.merge_tail(c1, o1, v1, cut, n, self.m, cfg.capacity,
-                               tail_mask)
+        the kernel) and the tail."""
+        return self._merge_tail(
+            *emit.nibble_to_matches(nib, bs, self.config.capacity), text, n,
+            cut)
 
-    def _region_and_tail(self, bs, text, n: int, cut: int, tail_mask):
-        """(count, offsets, overflow) from the region's block sums ``bs``
-        and the tail's start mask over [cut, N)."""
-        words = text.view(torch.int32)
-        # Logical n, not padded N: padded N lets a pattern ending in NUL
-        # bytes match inside the zero padding.
-        limit = min(n - self.m, cut - 1)
-        c1, o1, v1 = reconstruct.extract_region(
-            bs, reconstruct.full_words2d(words), self.dev_tables["swar_p"],
-            self.swar_m, self.m, limit, self.config.capacity,
-        )
-        return emit.merge_tail(c1, o1, v1, cut, n, self.m,
-                               self.config.capacity, tail_mask)
+    def _region_and_tail(self, bs, text, n: int, cut: int):
+        """(count, offsets, overflow) of every start from the region's
+        block flags ``bs``, the tail [cut, N) included
+        (``reconstruct.extract_blocks``).  Validity is the logical n, not
+        the padded N: padded N lets a pattern ending in NUL bytes match
+        inside the zero padding."""
+        return reconstruct.extract_blocks(
+            bs, text.view(torch.int32), self.dev_tables["swar_p"][None],
+            self.swar_m, cut, n, self.m, self.config.capacity)[0]
 
 
 @register_matcher
@@ -139,15 +145,13 @@ class NaiveMatcher(_RegionMatcher):
         limit = min(n - m, cut - 1)
         region = text.view(torch.int32)[: Nk // 4]
         P = self.dev_tables["swar_p"]
-        with span("tpumatch.tail"):
-            tail = naive_ops.naive_start_mask(text[cut:], self.pattern_dev)
         if self.config.emission == "nib":
             with span("tpumatch.scan"):
                 nib, bs = swar.naive_nib(region, limit, P, self.swar_m)
-            return self._nib_and_tail(nib, bs, n, cut, tail)
+            return self._nib_and_tail(nib, bs, text, n, cut)
         with span("tpumatch.scan"):
             bs = swar.naive_bsums(region, limit, P, self.swar_m)
-        return self._region_and_tail(bs, text, n, cut, tail)
+        return self._region_and_tail(bs, text, n, cut)
 
 
 @register_matcher
@@ -188,8 +192,6 @@ class RabinKarpMatcher(_RegionMatcher):
         region = text.view(torch.int32)[: Nk // 4]
         limit = min(n - m, cut - 1)
         target = self.dev_tables["pattern_hash"].reshape(1)
-        with span("tpumatch.tail"):
-            tail = self._mask(text[cut:])
         if cfg.emission == "nib":
             # The count comes from the verify, never from bs: hash hits are
             # candidates.
@@ -198,14 +200,14 @@ class RabinKarpMatcher(_RegionMatcher):
                                                    base)
             n_cand, cand, _ = emit.nibble_to_matches(nib, bs,
                                                      cfg.verify_capacity)
-            c1, o1, v1 = rk_ops.verify_region(
-                text, self.pattern_dev, cand, n_cand, limit,
-                cfg.verify_capacity, cfg.capacity)
-            return emit.merge_tail(c1, o1, v1, cut, n, m, cfg.capacity, tail)
-        # Hash hits are candidates: extract_region verifies and recounts.
+            return self._merge_tail(
+                *rk_ops.verify_region(text, self.pattern_dev, cand, n_cand,
+                                      limit, cfg.verify_capacity, cfg.capacity),
+                text, n, cut)
+        # Hash hits are candidates: the extraction verifies and recounts.
         with span("tpumatch.scan"):
             bs = rk_roll.rk_candidate_bsums(region, limit, target, m, base)
-        return self._region_and_tail(bs, text, n, cut, tail)
+        return self._region_and_tail(bs, text, n, cut)
 
 
 @register_matcher
@@ -217,7 +219,7 @@ class KMPMatcher(_RegionMatcher):
       are exact.
     - 32 < m <= 509 with ``kmp_long='screen'`` (default): the one-word
       automaton of ``pattern[:32]`` as a candidate screen, clamped at its own
-      n - 32; ``extract_region`` verifies the full pattern and re-clamps at
+      n - 32; the extraction verifies the full pattern and re-clamps at
       n - m, which alone makes the result exact near the end of the text.
     - 32 < m <= 256 with ``kmp_long='ripple'``: the K-word automaton of the
       whole pattern.
@@ -229,8 +231,8 @@ class KMPMatcher(_RegionMatcher):
 
     name = "kmp"
 
-    # The screen's bound: extract_region's dense branch rescans with the
-    # SWAR kernel, whose halo covers m <= swar.MAX_PATTERN (509).
+    # The screen's bound: the extraction verifies with the SWAR words,
+    # whose halo covers m <= swar.MAX_PATTERN (509).
     MAX_SCREEN_M = swar.MAX_PATTERN
     SCREEN_M = 32
 
@@ -268,19 +270,17 @@ class KMPMatcher(_RegionMatcher):
         if Nk == 0:
             return None
         region = text.view(torch.int32)[: Nk // 4]
-        with span("tpumatch.tail"):
-            tail = self._mask(text[cut:])
         if self.config.emission == "nib":  # mk == m: never the screen
             with span("tpumatch.scan"):
                 nib, bs = shift_and.kmp_nib(region, min(n - m, cut - 1), bt,
                                             m)
-            return self._nib_and_tail(nib, bs, n, cut, tail)
+            return self._nib_and_tail(nib, bs, text, n, cut)
         # The kernel's own clamp, min(n, Nk) - mk: for the screen it counts
-        # prefix starts in (n - m, n - 32] too, which extract_region's
-        # limit min(n - m, cut - 1) rejects.
+        # prefix starts in (n - m, n - 32] too, which the extraction's
+        # limit n - m rejects.
         with span("tpumatch.scan"):
             bs = shift_and.kmp_bsums(region, min(n, Nk) - mk, bt, mk)
-        return self._region_and_tail(bs, text, n, cut, tail)
+        return self._region_and_tail(bs, text, n, cut)
 
 
 @register_matcher
@@ -290,10 +290,10 @@ class BoyerMooreMatcher(_RegionMatcher):
     good-suffix shifts score as rarest: the vectorized form of BM's skip
     rule.
 
-    - sparse, ``bm_screen='cand'``: K1 counts candidate words and
-      ``extract_region`` verifies them (the default);
+    - sparse, ``bm_screen='cand'``: K1 counts candidate words and the
+      extraction verifies them (the default);
     - sparse, ``bm_screen='fused'`` or ``bm_probes='table_dyn'``: K7/K8
-      verify the words with a probe hit in the kernel, ``extract_region``
+      verify the words with a probe hit in the kernel, the extraction
       gathers the offsets from the exact block counts;
     - ``emission='nib'``: K7/K8 with the nibble plane, decoded directly.
 
@@ -361,19 +361,16 @@ class BoyerMooreMatcher(_RegionMatcher):
         if Nk == 0:
             return None
         cfg, t = self.config, self.dev_tables
-        # The region's largest valid start is the kernels' clamp and
-        # extract_region's limit.
+        # The region's largest valid start is the kernels' clamp.
         args = (text.view(torch.int32)[: Nk // 4], min(n - m, cut - 1),
                 t["swar_p"], self.swar_m, t["probes"])
-        with span("tpumatch.tail"):
-            tail = naive_ops.naive_start_mask(text[cut:], self.pattern_dev)
         if cfg.emission == "nib":
             with span("tpumatch.scan"):
                 nib, bs = swar.screened_nib(*args)
-            return self._nib_and_tail(nib, bs, n, cut, tail)
+            return self._nib_and_tail(nib, bs, text, n, cut)
         with span("tpumatch.scan"):
             if cfg.bm_screen == "fused" or cfg.bm_probes == "table_dyn":
                 bs = swar.screened_bsums(*args)
             else:
                 bs = swar.screen_cand_bsums(*args)
-        return self._region_and_tail(bs, text, n, cut, tail)
+        return self._region_and_tail(bs, text, n, cut)

@@ -12,20 +12,24 @@ each pattern is extracted exactly on its own:
 - ``'blocks'``, and ``'pselect'`` with k > 31: K5
   ``rk_roll.rk_candidate_bsums`` counts hits of any of the k hashes, and
   every pattern verifies every candidate block;
-- ``reconstruct.extract_region_multi`` verifies and recounts per pattern
+- ``reconstruct.extract_blocks`` decodes every valid start of every
+  pattern from those flags, the tail [cut, N) included: on the card one
+  CUDA decode (``swar.decode_blocks``) and one read of the k counts; on the
+  CPU its plain version, ``reconstruct.extract_region_multi`` per pattern
   (the K2 rescan for a pattern with more candidate chunks than the gather
-  width);
+  width) and a naive tail mask;
 - ``'groups'``, any k, m <= 33: K10c ``rk_roll.rk_candidate_bmask`` marks,
   per block, which 32-byte groups hold a hit of any of the k hashes, and
   ``reconstruct.extract_region_multi_groups`` verifies each pattern on
-  those groups only; m > 33 takes ``'blocks'``, as in the reference;
+  those groups only (past its gather width, ``extract_blocks`` on the
+  blocks with a group); m > 33 takes ``'blocks'``, as in the reference;
 - ``emission='nib'``: K10b ``rk_roll.rk_candidate_nib`` writes one
   candidate plane over all k hashes, its first ``verify_capacity``
   candidates are decoded once, and each pattern verifies them at their
   windows (``ops/rabin_karp.verify_region``; an exact compare of the region
   when there are more), whatever ``multi_gather`` says;
-- the tail [cut, N) takes ``ops/rabin_karp.rk_multi_start_masks``, merged
-  per pattern.
+- after ``'groups'`` and ``emission='nib'`` the tail [cut, N) takes
+  ``ops/rabin_karp.rk_multi_start_masks``, merged per pattern.
 
 Texts shorter than one kernel tile, m = 1 and m > 509 take
 ``rk_multi_start_masks`` over the whole text.  ``api.match`` groups a list
@@ -137,6 +141,9 @@ class RabinKarpMultiMatcher:
                     self.dev_tables["swar_ps"], self.swar_m, m, limit,
                     cfg.capacity,
                 )
+                if regions is None:  # past the group gather's width
+                    return self._decode((bm != 0).to(torch.int32), words, n,
+                                        cut, pmask=False)
             else:
                 pmask = (cfg.multi_gather == "pselect"
                          and self.k <= rk_roll.MAX_PMASK_PATTERNS)
@@ -144,17 +151,21 @@ class RabinKarpMultiMatcher:
                           else rk_roll.rk_candidate_bsums)
                 with span("tpumatch.scan"):
                     bs = screen(words[: Nk // 4], limit, hashes, m, base)
-                regions = reconstruct.extract_region_multi(
-                    bs, reconstruct.full_words2d(words),
-                    self.dev_tables["swar_ps"], self.swar_m, m, limit,
-                    cfg.capacity, pmask,
-                )
+                return self._decode(bs, words, n, cut, pmask)
             with span("tpumatch.tail"):
                 tails = self._masks(text[cut:])
             return [
                 emit.merge_tail(*region, cut, n, m, cfg.capacity, tail)
                 for region, tail in zip(regions, tails)
             ]
+
+    def _decode(self, flags, words, n: int, cut: int, pmask: bool) -> list:
+        """Every pattern's (count, offsets, overflow) over [0, n - m] from
+        the block flags of the kernel region (``reconstruct.extract_blocks``,
+        the tail included)."""
+        return reconstruct.extract_blocks(
+            flags, words, self.dev_tables["swar_ps"], self.swar_m, cut, n,
+            self.m, self.config.capacity, pmask)
 
     def match(self, data) -> list[MatchResult]:
         """One ``MatchResult`` per pattern, in pattern order.  The text is

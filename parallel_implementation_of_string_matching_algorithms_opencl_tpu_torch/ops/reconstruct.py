@@ -13,6 +13,13 @@ compares as the kernels, so every branch recounts exactly.  When the
 candidate chunks outnumber the gather width, one full rescan by the naive
 kernel (K2, ``swar.naive_nib``) replaces the gather.
 
+On the card the chain gives way to one decode: ``extract_blocks`` hands
+the scan's block flags to ``swar.decode_blocks``, a CUDA kernel that
+verifies the flagged blocks where they lie and the tail the scan did not
+cover, for every pattern, and reads the counts back once.  The chain below
+is its plain version on the CPU (``swar.decode_blocks_plain``), and the
+group extraction keeps its own gather on both.
+
 Offsets are always the true ascending first ``capacity`` matches: the
 reference's tier switch, T-slot extraction and give-up path are TPU
 machinery with no counterpart here.  Several patterns are extracted one
@@ -127,8 +134,22 @@ def extract_region_multi(bs, x2d, Ps, M, m: int, limit: int, capacity: int,
     ]
 
 
+def extract_blocks(flags, words, Ps, M, cut: int, n: int, m: int,
+                   capacity: int, pmask: bool = False) -> list:
+    """Per pattern, (count, offsets, overflow) of every start in [0, n - m]
+    of the padded text ``words`` (int32[N/4]), from the scan's block flags
+    ``flags`` over the kernel region and the tail [cut, N) verified whole:
+    ``swar.decode_blocks`` (``pmask``, ``Ps`` and ``M`` as there), then one
+    host read, the k counts.  Offsets are the ascending first ``capacity``
+    starts, a device tensor each."""
+    counts, offsets = swar.decode_blocks(words, flags, Ps, M, cut, n, m,
+                                         capacity, pmask)
+    return [(c, offsets[p, : min(c, capacity)], c > capacity)
+            for p, c in enumerate(counts.tolist())]
+
+
 def extract_region_multi_groups(bmask, x2d, Ps, M, m: int, limit: int,
-                                capacity: int) -> list:
+                                capacity: int):
     """Per pattern, ``extract_region``'s (count, offsets, overflow) from
     K10c's group occupancy masks (``multi_gather='groups'``, m <= 33).
 
@@ -140,8 +161,8 @@ def extract_region_multi_groups(bmask, x2d, Ps, M, m: int, limit: int,
     the chunk verify's masked word compares (``_verify_words``), clamped
     to ``limit``, and is exact on its own with its own ``capacity``.  A true start is a
     candidate, so its group is occupied.  More occupied groups than the
-    gather width take ``extract_region`` on the block flags (and its K2
-    rescan)."""
+    gather width return None: the caller decodes the block flags
+    (``extract_blocks``)."""
     with span("tpumatch.extract"):
         Mnp = swar.mask_words(m)
         nw = Mnp.shape[1]
@@ -151,9 +172,7 @@ def extract_region_multi_groups(bmask, x2d, Ps, M, m: int, limit: int,
         occ = extract.sorted_nonzero_ids(bits.flatten())
         gids = blocks[occ // 16] * 16 + occ % 16  # 16 * block + group, ascending
         if gids.numel() > MULTI_BLOCK_TIER:
-            flags = (bmask != 0).to(torch.int32)
-            return [extract_region(flags, x2d, P, M, m, limit, capacity)
-                    for P in Ps]
+            return None
         flat = x2d.view(-1)
         idx = (gids[:, None] * GROUP_WORDS
                + torch.arange(GROUP_WORDS + nw - 1, device=gids.device)[None, :])

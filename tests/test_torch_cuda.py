@@ -290,19 +290,20 @@ def test_refused_launch_raises(cuda_device):
 
 
 def test_match_end_to_end(cuda_device, monkeypatch):
-    """match() on the card: exact against the oracle, through K1, and
-    through K2 for the dense pattern (the gather width shrunk so a 4 MiB
-    text can exceed it); drain complete."""
+    """match() on the card: exact against the oracle, through K1 and the
+    decode, the dense pattern too: no K2 rescan, though the CPU chain's
+    gather width is shrunk so a 4 MiB text exceeds it; drain complete."""
     monkeypatch.setattr(reconstruct, "SPARSE_CHUNKS_SMALL", 256)
     text = bytes(gen_english(4 << 20, seed=21))
     cfg = MatchConfig(capacity=4096)
-    for pat, dense in ((b"quick brown fox ", False), (b"e ", True)):
+    for pat in (b"quick brown fox ", b"e "):  # sparse, dense
         k1, k2 = swar.screen_cand_bsums.launches, swar.naive_nib.launches
+        d = swar.decode_blocks.launches
         r = match(text, pat, config=cfg)
         want = find_all(text, pat)
         assert r.count == len(want) and r.offsets_list() == want[:4096]
         assert swar.screen_cand_bsums.launches == k1 + 1
-        assert (swar.naive_nib.launches > k2) == dense
+        assert swar.decode_blocks.launches == d + 1 and swar.naive_nib.launches == k2
         r = match(text, pat, config=cfg, drain=True)
         assert r.offsets_list() == want
 

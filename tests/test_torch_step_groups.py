@@ -338,9 +338,10 @@ class _Spy:
 def test_groups_edges(case, monkeypatch):
     """m = 33 is the last length on the group route and m = 34 takes
     'blocks' (K5 + extract_region_multi), as in the reference; k = 40 > 31
-    runs on groups; past the gather width every pattern takes
-    extract_region on the block flags; on overflow the counts are exact and
-    the offsets the oracle's ascending first ``capacity``."""
+    runs on groups; past the gather width the block flags take the decode,
+    whose plain version runs extract_region_multi (extract_region per
+    pattern); on overflow the counts are exact and the offsets the oracle's
+    ascending first ``capacity``."""
     groups = _Spy(monkeypatch, reconstruct, "extract_region_multi_groups")
     blocks = _Spy(monkeypatch, reconstruct, "extract_region_multi")
     single = _Spy(monkeypatch, reconstruct, "extract_region")
@@ -365,7 +366,7 @@ def test_groups_edges(case, monkeypatch):
                     jcfg=JCFG.replace(multi_gather="groups", capacity=cap))
     assert all(r.algo == "rabin_karp_multi" for r in rs)
     assert sum(r.count for r in rs) >= 40
-    assert groups.calls == (case != "m34") and blocks.calls == (case == "m34")
+    assert groups.calls == (case != "m34") and blocks.calls == (case in ("m34", "width"))
     assert single.calls == (k if case in ("width", "m34") else 0)
     if case == "overflow":
         assert rs[0].overflow and rs[0].count == 3000 and len(rs[0].offsets) == cap

@@ -30,9 +30,9 @@ source, in parallel), then:
     ``rk_candidate_pmask`` (k=8 m=16 with BASELINE config 2's patterns,
     k=31 m=12, k=2 m=509, k=1 m=2; nonzero exactly where K5 is at k=8) on
     English and DNA; the decode ``decode_blocks`` against its plain version
-    (the chain it replaced, run on the card) at capacity 0, 1, 4096 and
-    2**20, from K1's flags on every corpus, from K6's masks (k=8) and K5's
-    sums (k=40) on English at 256 MiB and at 64 MiB + 5555 B (padded to
+    (a byte compare of the blocks it verifies, run on the card) at capacity
+    0, 1, 4096 and 2**20, from K1's flags on every corpus, from K6's masks
+    (k=8) and K5's sums (k=40) on English at 256 MiB and at 64 MiB + 5555 B (padded to
     4096, so the tail holds valid starts), and from K1's flags with a start
     planted in that tail;
 (b) drives ``match()`` for every algorithm (the defaults: Boyer-Moore,
@@ -936,9 +936,10 @@ def main() -> int:
 
     def hold_decode(what: str, words, flags, Ps, M, cut: int, n: int, m: int,
                     pmask: bool = False) -> None:
-        """The decode against its plain version (the chain it replaces, run
-        on the card) at capacity 0, 1, 4096 and 2**20: counts equal, and
-        each pattern's first min(count, capacity) offsets."""
+        """The decode against its plain version (a byte compare of the
+        blocks it verifies, run on the card) at capacity 0, 1, 4096 and
+        2**20: counts equal, and each pattern's first min(count, capacity)
+        offsets."""
         for cap in (0, 1, 4096, 1 << 20):
             d = swar.decode_blocks.launches
             (gc, go), (wc, wo) = (
@@ -2100,15 +2101,6 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     time_1gb(rk_roll.rk_candidate_pmask, rk_roll.rk_candidate_pmask_plain, "config 2")
-    pm = rk_roll.rk_candidate_pmask(big_region, nb - 16, tgt, 16, base)
-    width = reconstruct.SPARSE_CHUNKS
-    for p_i, p in enumerate(c2_pats):
-        chunks = int(((pm >> p_i) & 1).view(-1, 8).amax(1).sum())
-        print(f"(e) config 2 pattern {p_i} {p!r}: {len(c2_want[p_i])} matches, "
-              f"{chunks} candidate chunks -> "
-              f"{'K2 rescan' if chunks > width else 'chunk gather'} (width {width})")
-    del pm
-    torch.cuda.empty_cache()
     time_1gb(rk_roll.rk_candidate_bmask, rk_roll.rk_candidate_bmask_plain,
              "config 2 under groups")
     bm = rk_roll.rk_candidate_bmask(big_region, nb - 16, tgt, 16, base)

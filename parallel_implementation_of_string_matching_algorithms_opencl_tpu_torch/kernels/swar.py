@@ -591,28 +591,36 @@ def _check_decode(words, flags, Ps, M, m: int, pmask: bool) -> None:
 
 def decode_blocks_plain(words, flags, Ps, M, cut: int, n: int, m: int,
                         capacity: int, pmask: bool = False):
-    """Plain PyTorch version of ``decode_blocks`` (same contract): the chain
-    the kernel replaces.  Per pattern ``ops/reconstruct.extract_region``
-    gathers and verifies the 4 KiB chunks of its flagged blocks (the K2
-    rescan past the gather's width) up to min(n - m, cut - 1), and the tail
-    [cut, N) takes the naive start mask (``ops/naive.naive_start_mask``),
-    merged after it (``ops/emit.merge_tail``).  Slots past a pattern's
-    count hold -1."""
-    from ..ops import emit, naive, reconstruct  # they import this module
-
-    k, width = Ps.shape[0], decode_width(n, m, capacity)
-    regions = reconstruct.extract_region_multi(
-        flags, reconstruct.full_words2d(words), Ps, M, m, min(n - m, cut - 1),
-        width, pmask)
-    text = words.view(torch.uint8)
-    counts = torch.zeros(k, dtype=torch.int64, device=words.device)
-    offsets = torch.full((k, width), -1, dtype=torch.int64, device=words.device)
-    for p, region in enumerate(regions):
-        with span("tpumatch.tail"):
-            tail = naive.naive_start_mask(text[cut:], Ps[p, 0].view(torch.uint8)[:m])
-        c, o, _ = emit.merge_tail(*region, cut, n, m, width, tail)
-        counts[p] = c
-        offsets[p, : o.numel()] = o
+    """Plain PyTorch version of ``decode_blocks`` (same contract; the slots
+    past a pattern's count hold -1).  Pattern p's candidates are the starts
+    <= n - m of the blocks the kernel verifies for it: those that hold a
+    start at or past ``cut`` and those whose flag names p.  Each candidate
+    block is gathered with the m - 1 bytes after it (0 past the text's
+    end) and its starts verified by a byte compare, row-wise as
+    ``ops/naive.naive_start_mask`` compares."""
+    k, width, limit, dev = Ps.shape[0], decode_width(n, m, capacity), n - m, words.device
+    counts = torch.zeros(k, dtype=torch.int64, device=dev)
+    offsets = torch.full((k, width), -1, dtype=torch.int64, device=dev)
+    nb = limit // BLOCK_BYTES + 1 if limit >= 0 else 0  # blocks with a valid start
+    named = torch.zeros(nb, dtype=torch.int32, device=dev)
+    named[: min(nb, flags.numel())] = flags[:nb]
+    first = BLOCK_BYTES * torch.arange(nb, device=dev)
+    tail = first + BLOCK_BYTES - 1 >= cut
+    text = torch.cat([words.view(torch.uint8),
+                      torch.zeros(m - 1, dtype=torch.uint8, device=dev)])
+    window = torch.arange(BLOCK_BYTES + m - 1, device=dev)
+    for p in range(k):
+        named_p = (named >> p) & 1 if pmask else named
+        blocks = first[(named_p != 0) | tail]
+        rows = text[blocks[:, None] + window]
+        pat = Ps[p, 0].view(torch.uint8)[:m]
+        hit = rows[:, :BLOCK_BYTES] == pat[0]
+        for j in range(1, m):
+            hit &= rows[:, j : j + BLOCK_BYTES] == pat[j]
+        starts = (blocks[:, None] + window[:BLOCK_BYTES])[hit]  # ascending
+        starts = starts[starts <= limit]
+        counts[p] = starts.numel()
+        offsets[p, : min(starts.numel(), width)] = starts[:width]
     return counts, offsets
 
 
@@ -636,12 +644,14 @@ def decode_blocks(words: torch.Tensor, flags: torch.Tensor, Ps: torch.Tensor,
     its first starts, ascending; the slots after them are not defined.
     Both stay on the device: the caller reads the counts once.
 
-    Replaces no TPU kernel: it replaces the host-driven chain of
-    ``decode_blocks_plain`` (csrc/swar.cu notes what bounds it).  Three
-    launches, no host read, under the ``tpumatch.extract`` span."""
+    Replaces no TPU kernel: it replaces the reference's host-driven chain
+    of chunk gathers, K2 rescans and tail masks (csrc/swar.cu notes what
+    bounds it).  Three launches, no host read; the plain version for a CPU
+    tensor.  Both run under the ``tpumatch.extract`` span."""
     _check_decode(words, flags, Ps, M, m, pmask)
     if words.device.type == "cpu":
-        return decode_blocks_plain(words, flags, Ps, M, cut, n, m, capacity, pmask)
+        with span("tpumatch.extract"):
+            return decode_blocks_plain(words, flags, Ps, M, cut, n, m, capacity, pmask)
     k, nw, dev = Ps.shape[0], Ps.shape[2], words.device
     width, limit = decode_width(n, m, capacity), n - m
     n_segs = decode_segments(words.numel(), limit)

@@ -13,11 +13,10 @@ Each runs the same pipeline on a padded text of N bytes.  With
    ``rk_roll.rk_candidate_bsums``, KMP's Shift-AND automaton K4
    ``shift_and.kmp_bsums``, exact for m <= 32 and a prefix screen above);
 2. ``reconstruct.extract_blocks`` decodes every valid start from the
-   block flags: on the card one CUDA decode (``swar.decode_blocks``)
-   verifies the flagged blocks and the tail [cut, N) the scan did not
-   cover, and the counts are read once; on the CPU its plain version, the
-   chunk gather of ``reconstruct.extract_region`` (the K2 rescan when the
-   chunks are too many) and a naive tail mask merged after the region.
+   block flags: the decode (``swar.decode_blocks``) verifies the flagged
+   blocks and the tail [cut, N) the scan did not cover, and the counts are
+   read once; a CUDA kernel on the card, its plain version (a byte compare
+   of the same blocks) on the CPU.
 
 With ``emission='nib'`` the scan kernel also writes the nibble plane of
 its starts and step 2 decodes it (``emit.nibble_to_matches``): naive K2

@@ -13,11 +13,9 @@ each pattern is extracted exactly on its own:
   ``rk_roll.rk_candidate_bsums`` counts hits of any of the k hashes, and
   every pattern verifies every candidate block;
 - ``reconstruct.extract_blocks`` decodes every valid start of every
-  pattern from those flags, the tail [cut, N) included: on the card one
-  CUDA decode (``swar.decode_blocks``) and one read of the k counts; on the
-  CPU its plain version, ``reconstruct.extract_region_multi`` per pattern
-  (the K2 rescan for a pattern with more candidate chunks than the gather
-  width) and a naive tail mask;
+  pattern from those flags, the tail [cut, N) included, in one decode
+  (``swar.decode_blocks``: a CUDA kernel on the card, its plain version on
+  the CPU) and one read of the k counts;
 - ``'groups'``, any k, m <= 33: K10c ``rk_roll.rk_candidate_bmask`` marks,
   per block, which 32-byte groups hold a hit of any of the k hashes, and
   ``reconstruct.extract_region_multi_groups`` verifies each pattern on

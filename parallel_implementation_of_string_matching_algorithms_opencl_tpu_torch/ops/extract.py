@@ -1,5 +1,6 @@
 """Nibble planes to ascending byte offsets (counterpart of the parts of the
-JAX ``ops/extract.py`` that ``extract_region`` uses).
+JAX ``ops/extract.py`` that its extraction uses), for the group extraction
+and the ``nib`` routes' decode.
 
 The reference compacts with sorts and fixed-size T-slot planes because the
 TPU has no dynamic shapes, and gives up to the drain path when a plane

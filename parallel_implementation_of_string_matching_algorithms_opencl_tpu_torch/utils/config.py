@@ -27,15 +27,15 @@ BM_PROBES = ("table_gs", "table", "static", "table_dyn", "table_gs1")
 # until each leaves its chunk.  No kernel: plain PyTorch on the device.
 BM_VARIANT = ("filtered", "cursor")
 # Boyer-Moore screen execution under sparse emission: 'cand' counts probe
-# candidates per block (K1) and extract_region verifies them; 'fused'
-# verifies every word with a probe hit in the kernel (K7) and extract_region
-# verifies again from the exact block counts.
+# candidates per block (K1) and the decode (kernels/swar.decode_blocks)
+# verifies the flagged blocks; 'fused' verifies every word with a probe hit
+# in the kernel (K7) and the decode verifies again the blocks it counts.
 BM_SCREEN = ("cand", "fused")
 # Offset emission: 'sparse' kernels emit per-512-byte block counts and the
-# offsets come from verifying gathered candidate chunks
-# (ops/reconstruct.extract_region); 'nib' kernels also write the full
-# nibble plane (bit a of int32 word w = a start at byte 4w + a) and the
-# offsets are decoded from the blocks that hold them
+# offsets come from the decode of those flags (kernels/swar.decode_blocks:
+# a CUDA kernel on the card, its plain version on the CPU); 'nib' kernels
+# also write the full nibble plane (bit a of int32 word w = a start at byte
+# 4w + a) and the offsets are decoded from the blocks that hold them
 # (ops/emit.nibble_to_matches).
 EMISSION = ("sparse", "nib")
 # KMP execution for m > 32 under sparse emission: 'screen' runs the

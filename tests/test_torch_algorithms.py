@@ -11,6 +11,8 @@ reference's; offsets are the oracle's first ``capacity``, and equal the
 reference's wherever it reports ``overflow=False``.
 """
 
+import _torch_threads  # noqa: F401
+
 import numpy as np
 import pytest
 import torch
@@ -171,7 +173,7 @@ def test_pattern_lengths(algo, m):
 @pytest.mark.parametrize("m", [33, 64, 300, 509])
 def test_kmp_screen_near_misses_at_the_end(m):
     """The screen kernel clamps at n - 32, so prefix-only near-misses that
-    start in (n - m, n - 32] reach its block sums; extract_region's limit
+    start in (n - m, n - 32] reach its block sums; the decode's limit
     n - m must drop them, for n below and at the region end."""
     pat = bytes(gen_english(m, seed=500 + m))
     near = pat[:32] + b"#" * 8

@@ -11,6 +11,8 @@ reference recurses without end there). A 512-byte chunk makes every
 kernel tile 64 KiB, so the texts cover several tiles and a tail.
 """
 
+import _torch_threads  # noqa: F401
+
 import numpy as np
 import pytest
 
@@ -34,9 +36,6 @@ from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.kern
 )
 from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.models import (
     base,
-)
-from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.ops import (
-    reconstruct,
 )
 
 ALGOS = ["naive", "kmp", "rabin_karp", "boyer_moore"]
@@ -129,20 +128,27 @@ def test_count_only_multi_matcher(gather):
 
 
 def test_count_only_dense_rescan(monkeypatch):
-    """More candidate chunks than the gather width: the K2 rescan's
-    nibble-plane decode of zero offsets, overflow set."""
-    monkeypatch.setattr(reconstruct, "SPARSE_CHUNKS_SMALL", 2)
-    rescans = []
+    """A dense pattern, a match in nearly every block: the decode's plain
+    version verifies the flagged blocks for the exact count and writes no
+    offset (width 0), overflow set; no K2 rescan runs."""
+    rescans, decodes = [], []
 
     def k2(*args, _k2=swar.naive_nib):
         rescans.append(args[1])
         return _k2(*args)
 
+    def plain(*args, _plain=swar.decode_blocks_plain):
+        counts, offsets = _plain(*args)
+        decodes.append(tuple(offsets.shape))
+        return counts, offsets
+
     monkeypatch.setattr(swar, "naive_nib", k2)
+    monkeypatch.setattr(swar, "decode_blocks_plain", plain)
+    want = find_all(TEXT, b"e ")
+    assert len(want) > len(TEXT) // 512
     for algo in ("naive", "boyer_moore"):
-        _count_only(match(TEXT, b"e ", algo=algo, config=PCFG, device="cpu"),
-                    find_all(TEXT, b"e "))
-    assert len(rescans) == 2
+        _count_only(match(TEXT, b"e ", algo=algo, config=PCFG, device="cpu"), want)
+    assert decodes == [(1, 0), (1, 0)] and rescans == []
 
 
 def test_drain_with_count_only_raises_before_any_scan(monkeypatch):

@@ -17,6 +17,8 @@ every flag of ``cli.py`` and carry over the reference's own CLI cases
 (``tests/test_aux.py`` and ``tests/test_streaming.py``).
 """
 
+import _torch_threads  # noqa: F401
+
 import contextlib
 import io
 import json

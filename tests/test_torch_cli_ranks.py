@@ -21,6 +21,8 @@ capacity, and a match planted across each seam (the shard seam of
 ``--distributed`` and the slice seam of ``--multihost``).
 """
 
+import _torch_threads  # noqa: F401
+
 import contextlib
 import datetime
 import io

@@ -14,6 +14,8 @@ be left out:
     python -m pytest -o addopts="" --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import _torch_threads  # noqa: F401
+
 import json
 import socket
 
@@ -40,7 +42,6 @@ from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.mode
     BoyerMooreMatcher,
 )
 from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.ops import (
-    reconstruct,
     tables,
 )
 from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.utils.io import (
@@ -289,11 +290,9 @@ def test_refused_launch_raises(cuda_device):
                      P.data_ptr(), P.data_ptr(), 2, w.data_ptr(), w.data_ptr())
 
 
-def test_match_end_to_end(cuda_device, monkeypatch):
+def test_match_end_to_end(cuda_device):
     """match() on the card: exact against the oracle, through K1 and the
-    decode, the dense pattern too: no K2 rescan, though the CPU chain's
-    gather width is shrunk so a 4 MiB text exceeds it; drain complete."""
-    monkeypatch.setattr(reconstruct, "SPARSE_CHUNKS_SMALL", 256)
+    decode, the dense pattern too, with no K2 rescan; drain complete."""
     text = bytes(gen_english(4 << 20, seed=21))
     cfg = MatchConfig(capacity=4096)
     for pat in (b"quick brown fox ", b"e "):  # sparse, dense

@@ -1,17 +1,18 @@
 """PyTorch port: the decode, ``swar.decode_blocks``, from a scan's block
 flags to every pattern's exact count and first offsets over [0, n - m].
 
-On the CPU the wrapper runs its plain version (the chunk gather of
-``reconstruct.extract_region`` and a naive tail mask), held here against
+On the CPU the wrapper runs its plain version (the blocks the kernel
+verifies, gathered and compared byte for byte), held here against
 ``conformance/oracle.py``: the ``[k, width]`` layout, exact counts, the
 ascending first ``capacity`` offsets and the overflow rule of
 ``reconstruct.extract_blocks``, on ragged lengths, a tail that holds valid
 starts, stale bytes after n, a pattern ending in NUL bytes, pattern masks
-for k = 1, 8 and 31, block sums for k = 40, m = 1 to 509 and a text where
-every block is flagged.  The kernel's rules (which blocks a warp verifies
-for which pattern, its segments and its screen words) are modelled in
-Python beside it.  The matchers' sparse paths reach the wrapper on both
-devices.
+for k = 1, 8 and 31, block sums for k = 40, m = 1 to 509, a text where
+every block is flagged, and a block that holds a match with its flag
+cleared, which the decode misses as the kernel does.  The kernel's rules
+(which blocks a warp verifies for which pattern, its segments and its
+screen words) are modelled in Python beside it.  The matchers' sparse
+paths reach the wrapper on both devices.
 
 The ``cuda`` cases hold the kernel against the plain version, count for
 count and offset for offset, and check that the card's main paths launch
@@ -21,6 +22,8 @@ runs as
 
     python -m pytest -o addopts="" --noconftest -m cuda tests/test_torch_decode.py
 """
+
+import _torch_threads  # noqa: F401
 
 import numpy as np
 import pytest
@@ -49,7 +52,9 @@ REGION = 32 * 4096  # the scanned region [0, Nk) of the hand-made cases
 # name -> (k, m, pmask, geometry); geometry: "ragged" (n inside the
 # region, the tail all padding, as the benchmark's corpora), "pad4096" (the
 # text padded to 4096 only, so the tail holds valid starts), "halo" (stale
-# bytes after n, as a stream chunk's buffer), "dense" (every block flagged)
+# bytes after n, as a stream chunk's buffer), "dense" (every block flagged),
+# "cleared" (as "pad4096", with the last pattern's flag cleared in a block
+# that holds its match: the decode misses those starts)
 CASES = {
     "ragged-k1-m16": (1, 16, False, "ragged"),
     "pad4096-k1-m24": (1, 24, False, "pad4096"),
@@ -61,6 +66,8 @@ CASES = {
     "pad4096-k2-m509-pmask": (2, 509, True, "pad4096"),
     "dense-k2-m2": (2, 2, False, "dense"),
     "dense-k8-m3-pmask": (8, 3, True, "dense"),
+    "cleared-k1-m16": (1, 16, False, "cleared"),
+    "cleared-k8-m16-pmask": (8, 16, True, "cleared"),
 }
 CAPACITIES = [0, 1, 4096]
 
@@ -77,7 +84,7 @@ def _case(name: str) -> dict:
     k, m, pmask, geo = CASES[name]
     rng = np.random.default_rng(len(name) * 1000 + k * 17 + m)
     N = REGION + 8192
-    n = {"ragged": REGION - 3333, "pad4096": REGION + 5000,
+    n = {"ragged": REGION - 3333, "pad4096": REGION + 5000, "cleared": REGION + 5000,
          "halo": REGION + 4700, "nul": REGION + 6000, "dense": N - 1000}[geo]
     if geo == "dense":
         data = bytearray(b"a" * N)
@@ -98,7 +105,7 @@ def _case(name: str) -> dict:
                     data[off : off + m] = pat
         if geo == "nul":
             data[n - 2 : n] = b"ab"
-    if geo in ("ragged", "nul", "pad4096"):
+    if geo in ("ragged", "nul", "pad4096", "cleared"):
         data[n:] = bytes(N - n)  # the zero padding
     elif geo == "halo":  # stale copies past n, one across it
         for off in (n - m + 1, n + 5, N - 3 * m):
@@ -117,6 +124,10 @@ def _case(name: str) -> dict:
     flags[false] |= (1 << (k - 1)) if pmask else 3
     if geo == "dense":
         flags[:] = (1 << k) - 1 if pmask else 64
+    if geo == "cleared":  # below the cut, so only its flag names the block
+        b = next(s // 512 for s in wants[-1] if s // 512 * 512 + 511 < cut)
+        flags[b] &= ~(1 << (k - 1)) if pmask else 0
+        wants[-1] = [s for s in wants[-1] if s // 512 != b]
     return {"text": text, "n": n, "N": N, "pats": pats, "m": m, "k": k,
             "cut": cut, "pmask": pmask, "wants": wants,
             "flags": torch.from_numpy(flags.astype(np.int32))}
@@ -145,7 +156,9 @@ def _selected(c: dict, b: int) -> int:
 def test_plain_decode_contract(name, capacity):
     """The plain version: counts int64[k] equal to the oracle's, offsets
     int64[k, width] whose first min(count, width) slots are the oracle's
-    first starts and the rest -1, width = min(capacity, n - m + 1); through
+    first starts and the rest -1, width = min(capacity, n - m + 1), where
+    the oracle's starts in a block whose flag a case clears are left out,
+    as the kernel leaves them; through
     ``extract_blocks`` the triples, overflow exactly when count > capacity.
     Under the kernel's rules every valid start lies in a block verified
     for its pattern, and the warp segments cover those blocks."""

@@ -25,6 +25,8 @@ World 1 runs in this process without a group, against the reference's
 fixtures and tests that compute the reference.
 """
 
+import _torch_threads  # noqa: F401
+
 import dataclasses
 import os
 import sys

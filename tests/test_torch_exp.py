@@ -19,6 +19,8 @@ bytes of Nk.  K11a, K11c and K11d clamp per alignment and are exact at
 every n.
 """
 
+import _torch_threads  # noqa: F401
+
 import functools
 import importlib.util
 import os

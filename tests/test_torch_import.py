@@ -1,6 +1,8 @@
 """PyTorch port: import isolation from JAX, the explicit device, the
 algorithms, pattern lists, and the opt-in modes."""
 
+import _torch_threads  # noqa: F401
+
 import os
 import subprocess
 import sys

@@ -18,6 +18,8 @@ Capacity is per pattern in the port; where the reference reports
 the oracle's.
 """
 
+import _torch_threads  # noqa: F401
+
 import numpy as np
 import pytest
 import torch
@@ -39,6 +41,9 @@ from parallel_implementation_of_string_matching_algorithms_opencl_tpu.models.mul
 )
 from parallel_implementation_of_string_matching_algorithms_opencl_tpu.ops import (
     rabin_karp as jrk,
+)
+from parallel_implementation_of_string_matching_algorithms_opencl_tpu.ops import (
+    reconstruct as jreconstruct,
 )
 from parallel_implementation_of_string_matching_algorithms_opencl_tpu.ops import (
     tables as jtables,
@@ -69,9 +74,6 @@ from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.mode
 )
 from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.ops import (
     rabin_karp as rk_ops,
-)
-from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.ops import (
-    reconstruct,
 )
 
 CHUNK = 4096
@@ -322,21 +324,25 @@ def test_multi_pattern_64_groups_exact():
 
 @pytest.mark.parametrize("rescan", [False, True], ids=["gather", "rescan"])
 def test_rk_multi_dense_union_tiers_and_truncation(rescan, monkeypatch):
-    """Dense m=2 digraphs over the kernel region, through the chunk gather
-    and (gather width shrunk) the K2 rescan: exact at a large capacity; at
-    a small one, counts exact, offsets the oracle's first ``capacity`` per
-    pattern, overflow set where the count exceeds it."""
+    """Dense m=2 digraphs over the kernel region, the port through the
+    decode, the reference through its plain jnp route and (its Pallas
+    route interpreted, its gather width shrunk) through its selector's K2
+    rescan: exact at a large capacity; at a small one, counts exact,
+    offsets the oracle's first ``capacity`` per pattern, overflow set
+    where the count exceeds it."""
+    jcfg = JCFG
     if rescan:
-        monkeypatch.setattr(reconstruct, "SPARSE_CHUNKS_SMALL", 32)
+        monkeypatch.setattr(jreconstruct, "SPARSE_CHUNKS_SMALL", 32)
+        jcfg = JCFG.replace(use_pallas="on", interpret=True)
     text = gen_english(TILE + 99, seed=83)
     pats = [b"e ", b" t", b"th", b"qq"]
     expected = [find_all(text, p) for p in pats]
     assert sum(len(e) for e in expected) > 8192
     check_many(text, pats, algo="rabin_karp", pcfg=PCFG.replace(capacity=65536),
-               jcfg=JCFG.replace(capacity=65536))
+               jcfg=jcfg.replace(capacity=65536))
     rs = check_many(text, pats, algo="rabin_karp",
                     pcfg=PCFG.replace(capacity=1024),
-                    jcfg=JCFG.replace(capacity=1024))
+                    jcfg=jcfg.replace(capacity=1024))
     assert [r.overflow for r in rs] == [len(e) > 1024 for e in expected]
     assert sum(r.overflow for r in rs) >= 2
     k2 = swar.naive_nib.launches  # CPU tensors: never a launch

@@ -23,6 +23,8 @@ The JAX package is imported only inside the tests that compute the
 reference.
 """
 
+import _torch_threads  # noqa: F401
+
 import dataclasses
 import json
 import os

@@ -4,6 +4,8 @@ the cases of ``tests/test_native.py``; and ``NativeFile.read_chunk`` into
 a numpy array and into a ``torch.uint8`` tensor's numpy view.  The tests
 skip only where the reference's do: the library cannot be built."""
 
+import _torch_threads  # noqa: F401
+
 import numpy as np
 import pytest
 import torch

@@ -20,6 +20,8 @@ seams, at the cut and at the last valid start, for n just below, at and
 past the end of the kernel region.
 """
 
+import _torch_threads  # noqa: F401
+
 import numpy as np
 import pytest
 import torch

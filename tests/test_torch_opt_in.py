@@ -11,6 +11,8 @@ oracle's first ``capacity``, and equal the reference's wherever it reports
 small texts cover several tiles.
 """
 
+import _torch_threads  # noqa: F401
+
 import numpy as np
 import pytest
 import torch

@@ -6,6 +6,8 @@ card's timers moved from ``chip_smoke.py`` raise here and never time the
 CPU.  Their runs on the card are in ``tests/test_torch_cuda.py``.
 """
 
+import _torch_threads  # noqa: F401
+
 import functools
 import json
 import types

@@ -13,6 +13,8 @@ JAX package, so it also runs where ``tests/conftest.py`` must be left out:
     python -m pytest -o addopts="" --noconftest -m cuda tests/test_torch_results.py
 """
 
+import _torch_threads  # noqa: F401
+
 import numpy as np
 import pytest
 import torch

@@ -22,6 +22,8 @@ K10c masks the plain K6 and K10c.  The kernel itself is held against the
 plain versions on the card (tests/test_torch_cuda.py, chip_smoke.py).
 """
 
+import _torch_threads  # noqa: F401
+
 import numpy as np
 import pytest
 import torch

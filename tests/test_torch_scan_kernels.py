@@ -13,6 +13,8 @@ the oracle and the dense DFA in tests/test_torch_algorithms.py and against
 its plain version on the card (tests/test_torch_cuda.py, chip_smoke.py).
 """
 
+import _torch_threads  # noqa: F401
+
 import numpy as np
 import pytest
 import torch

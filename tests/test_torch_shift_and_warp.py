@@ -26,6 +26,8 @@ the Pallas kernel in tests/test_torch_scan_kernels.py and
 tests/test_torch_nib.py.
 """
 
+import _torch_threads  # noqa: F401
+
 import numpy as np
 import pytest
 import torch

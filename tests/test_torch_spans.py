@@ -4,11 +4,15 @@ the CPU, read from ``torch.profiler``'s raw kineto events.
 Each layer boundary of ``match`` and ``run`` records one span while a
 profiler records, nested on the calling thread: ``tpumatch.match`` holds
 ``stage`` (``stage.pad``, ``stage.copy``), ``run`` (``scan``, ``extract``,
-``tail``; ``rescan`` inside ``extract``) and ``result``.  Spans are
-``cpu_op`` events, never ``user_annotation``s, which the profiler would
-project onto the card's timeline.  With no profiler a span is one shared
-null context.  Their runs on the card are in ``tests/test_torch_cuda.py``.
+and ``tail`` on the routes that merge a plain tail mask) and ``result``.
+The decode records one ``extract`` a call for every pattern of the call,
+on the CPU as on the card.  Spans are ``cpu_op`` events, never
+``user_annotation``s, which the profiler would project onto the card's
+timeline.  With no profiler a span is one shared null context.  Their
+runs on the card are in ``tests/test_torch_cuda.py``.
 """
+
+import _torch_threads  # noqa: F401
 
 import json
 
@@ -26,9 +30,6 @@ from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.mode
 )
 from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.models.algorithms import (
     BoyerMooreMatcher,
-)
-from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.ops import (
-    reconstruct,
 )
 from parallel_implementation_of_string_matching_algorithms_opencl_tpu_torch.utils import (
     profiling,
@@ -52,7 +53,6 @@ PARENT = {"tpumatch.stage": "tpumatch.match",
           "tpumatch.scan": "tpumatch.run",
           "tpumatch.extract": "tpumatch.run",
           "tpumatch.tail": "tpumatch.run",
-          "tpumatch.rescan": "tpumatch.extract",
           "tpumatch.result": "tpumatch.match"}
 
 
@@ -90,14 +90,14 @@ def _want(pats, text=TEXT) -> list:
     return [(len(f), f, False) for f in (find_all(text, p) for p in pats)]
 
 
-# case -> (the call, its patterns, the extract spans it records)
+# case -> (the call, its patterns, the extract spans it records): one
+# decode, or one group extraction, for every pattern of the list
 CALLS = {
     "bm": (lambda: match(TEXT, PAT, device="cpu"), [PAT], 1),
     "naive": (lambda: match(TEXT, PAT, algo="naive", device="cpu"), [PAT], 1),
     "kmp": (lambda: match(TEXT, PAT, algo="kmp", device="cpu"), [PAT], 1),
     "rk": (lambda: match(TEXT, PAT, algo="rk", device="cpu"), [PAT], 1),
-    "rk_list": (lambda: match(TEXT, LIST, algo="rk", device="cpu"), LIST, 3),
-    # one group extraction for every pattern of the list
+    "rk_list": (lambda: match(TEXT, LIST, algo="rk", device="cpu"), LIST, 1),
     "rk_groups": (lambda: match(TEXT, LIST, algo="rk", multi_gather="groups",
                                 device="cpu"), LIST, 1),
 }
@@ -106,9 +106,10 @@ CALLS = {
 @pytest.mark.parametrize("case", list(CALLS))
 def test_match_records_the_span_tree(case):
     """One ``match`` call: each span under its layer's parent, one
-    ``run``, one ``scan``, the route's ``extract``s, a ``result`` per
-    pattern, the tails inside ``run`` and ``result`` after it; the answers
-    equal the oracle's with the profiler and without it."""
+    ``run``, one ``scan``, one ``extract``, a ``result`` per pattern and
+    ``result`` after ``run``; a ``tail`` inside ``run`` only where the group
+    extraction merges a tail mask, as on the card; the answers equal the
+    oracle's with the profiler and without it."""
     fn, pats, extracts = CALLS[case]
     assert _results(fn()) == _want(pats)
     out, events = _profiled(fn)
@@ -118,11 +119,12 @@ def test_match_records_the_span_tree(case):
     for name, _lo, _hi, parent in spans:
         assert parent == PARENT.get(name), (name, parent)
     k = len(pats)
-    assert {n: names.count(n) for n in set(names) - {"tpumatch.tail"}} == {
+    # the group route's tail masks, then a merge a pattern
+    tails = {"tpumatch.tail": 1 + k} if case == "rk_groups" else {}
+    assert {n: names.count(n) for n in set(names)} == {
         "tpumatch.match": 1, "tpumatch.stage": 1, "tpumatch.stage.pad": 1,
         "tpumatch.stage.copy": 1, "tpumatch.run": 1, "tpumatch.scan": 1,
-        "tpumatch.extract": extracts, "tpumatch.result": k}
-    assert names.count("tpumatch.tail") >= 1
+        "tpumatch.extract": extracts, "tpumatch.result": k, **tails}
     run = next(s for s in spans if s[0] == "tpumatch.run")
     assert all(s[1] >= run[2] for s in spans if s[0] == "tpumatch.result")
 
@@ -144,10 +146,10 @@ def test_resident_run_is_the_root_and_result_follows():
 
 
 @pytest.mark.parametrize("multi", [False, True], ids=["single", "list"])
-def test_dense_input_records_a_rescan_inside_extract(multi, monkeypatch):
-    """More candidate chunks than the gather width: ``_dense``'s K2
-    rescan, one ``tpumatch.rescan`` inside each pattern's ``extract``."""
-    monkeypatch.setattr(reconstruct, "SPARSE_CHUNKS_SMALL", 32)
+def test_dense_input_records_a_rescan_inside_extract(multi):
+    """A dense input: the decode verifies every flagged block inside one
+    ``tpumatch.extract`` under ``tpumatch.run``, and no rescan is
+    recorded."""
     pats = [b"e t", b"s a"] if multi else [b"e t"]
     if multi:
         mm = RabinKarpMultiMatcher(pats, device="cpu")
@@ -157,9 +159,9 @@ def test_dense_input_records_a_rescan_inside_extract(multi, monkeypatch):
     out, events = _profiled(fn)
     assert _results(out) == _want(pats)
     spans = _spans(events)
-    rescans = [s for s in spans if s[0] == "tpumatch.rescan"]
-    assert len(rescans) == len(pats)
-    assert all(s[3] == "tpumatch.extract" for s in rescans)
+    extracts = [s for s in spans if s[0] == "tpumatch.extract"]
+    assert len(extracts) == 1 and extracts[0][3] == "tpumatch.run"
+    assert not [s for s in spans if s[0] == "tpumatch.rescan"]
 
 
 def test_every_span_is_a_cpu_op():
@@ -182,7 +184,7 @@ def test_trace_writes_the_spans_into_its_json(tmp_path):
     cats = {e["name"]: e.get("cat")
             for e in json.loads(path.read_text())["traceEvents"]
             if str(e.get("name", "")).startswith("tpumatch.")}
-    assert set(cats) == {*PARENT, "tpumatch.match"} - {"tpumatch.rescan"}
+    assert set(cats) == {*PARENT, "tpumatch.match"} - {"tpumatch.tail"}
     assert set(cats.values()) == {"cpu_op"}
 
 

@@ -21,6 +21,8 @@ a 512 KiB tile and 512-byte sub-chunks, with matches planted across those
 seams, at the cut and at the last valid start.
 """
 
+import _torch_threads  # noqa: F401
+
 import numpy as np
 import pytest
 import torch
@@ -337,14 +339,12 @@ class _Spy:
 @pytest.mark.parametrize("case", ["m33", "m34", "k40", "width", "overflow"])
 def test_groups_edges(case, monkeypatch):
     """m = 33 is the last length on the group route and m = 34 takes
-    'blocks' (K5 + extract_region_multi), as in the reference; k = 40 > 31
-    runs on groups; past the gather width the block flags take the decode,
-    whose plain version runs extract_region_multi (extract_region per
-    pattern); on overflow the counts are exact and the offsets the oracle's
-    ascending first ``capacity``."""
+    'blocks' (K5 and the decode of its block sums), as in the reference;
+    k = 40 > 31 runs on groups; past the gather width the block flags take
+    the decode, once for every pattern; on overflow the counts are exact
+    and the offsets the oracle's ascending first ``capacity``."""
     groups = _Spy(monkeypatch, reconstruct, "extract_region_multi_groups")
-    blocks = _Spy(monkeypatch, reconstruct, "extract_region_multi")
-    single = _Spy(monkeypatch, reconstruct, "extract_region")
+    decode = _Spy(monkeypatch, swar, "decode_blocks")
     m = {"m33": 33, "m34": 34}.get(case, 12)
     k = 40 if case == "k40" else 4
     base = gen_english(TILE + 3333, seed=900 + m + k)
@@ -366,8 +366,7 @@ def test_groups_edges(case, monkeypatch):
                     jcfg=JCFG.replace(multi_gather="groups", capacity=cap))
     assert all(r.algo == "rabin_karp_multi" for r in rs)
     assert sum(r.count for r in rs) >= 40
-    assert groups.calls == (case != "m34") and blocks.calls == (case in ("m34", "width"))
-    assert single.calls == (k if case in ("width", "m34") else 0)
+    assert groups.calls == (case != "m34") and decode.calls == (case in ("m34", "width"))
     if case == "overflow":
         assert rs[0].overflow and rs[0].count == 3000 and len(rs[0].offsets) == cap
 

@@ -22,6 +22,8 @@ against the oracle, where the reference cannot (unaligned ``chunk_bytes``)
 or differs by design (``drain=True`` with ``capacity=0``).
 """
 
+import _torch_threads  # noqa: F401
+
 import collections
 import dataclasses
 import json

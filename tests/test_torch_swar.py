@@ -9,6 +9,8 @@ exact at every n.  The CUDA kernels themselves are held against the same
 plain versions on the card (tests/test_torch_cuda.py, chip_smoke.py).
 """
 
+import _torch_threads  # noqa: F401
+
 import numpy as np
 import pytest
 import torch

@@ -1,6 +1,8 @@
 """PyTorch port: host-side tables and per-pattern config against the JAX
 package, bit for bit (numpy only; no kernel runs here)."""
 
+import _torch_threads  # noqa: F401
+
 import numpy as np
 import pytest
 import torch

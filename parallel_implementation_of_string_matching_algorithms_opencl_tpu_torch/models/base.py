@@ -48,12 +48,26 @@ def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
 
 def stage(arr: np.ndarray, multiple: int, device: torch.device) -> torch.Tensor:
     """The host bytes ``arr`` padded to ``multiple`` and copied to
-    ``device``: what ``match`` hands ``run``."""
+    ``device``: what ``match`` hands ``run``.
+
+    On the CPU: ``pad_to_multiple`` and the array as a tensor.  On a CUDA
+    device the padded text is allocated on the card, only its padding
+    [n, N) is zeroed there, and the caller's unpadded bytes are copied
+    into [0, n) in one copy, as ``parallel/dist.py`` builds a shard."""
     with span("tpumatch.stage"):
+        if device.type != "cuda":
+            with span("tpumatch.stage.pad"):
+                padded = pad_to_multiple(arr, multiple)
+            with span("tpumatch.stage.copy"):
+                return to_device(padded, device)
+        n = len(arr)
         with span("tpumatch.stage.pad"):
-            padded = pad_to_multiple(arr, multiple)
+            text = torch.empty(-(-max(n, 1) // multiple) * multiple,
+                               dtype=torch.uint8, device=device)
+            text[n:].zero_()
         with span("tpumatch.stage.copy"):
-            return to_device(padded, device)
+            text[:n].copy_(to_device(arr, torch.device("cpu")))
+        return text
 
 
 def valid_prefix(off: np.ndarray) -> np.ndarray:
